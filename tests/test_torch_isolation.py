@@ -1,0 +1,73 @@
+"""The port stands alone: no JAX, nothing of ``repro``, and no quiet CPU
+fallback when the default CUDA device is missing."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import HetSpec, get_scheme
+
+PKG = Path(repro_torch.__file__).resolve().parent
+
+
+def test_imports_and_runs_with_jax_and_repro_blocked():
+    """In a fresh interpreter where importing ``jax`` or ``repro`` fails,
+    the port imports and runs a small Monte Carlo on the CPU."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.core import HetSpec, get_scheme\n"
+        "rng = np.random.default_rng(0)\n"
+        "het = HetSpec.uniform_random(8, 20.0, 20.0**2 / 6, rng)\n"
+        "r = get_scheme('work_exchange_unknown').mc(het, 5000, 16, rng, "
+        "device='cpu')\n"
+        "assert np.isfinite(r.t_comp) and r.extra['backend'] == 'cuda'\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+        "for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok', r.t_comp)\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_source_imports_no_jax_and_no_repro():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 10
+    for path in files:
+        for mod in _imported_modules(path):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), (path, mod)
+    root_script = PKG.parents[1] / "chip_smoke.py"
+    for mod in _imported_modules(root_script):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default runs there")
+    het = HetSpec.uniform_random(8, 20.0, 0.0, np.random.default_rng(0))
+    for name in ("oracle", "fixed", "mds", "work_exchange"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_scheme(name).mc(het, 1000, 4, np.random.default_rng(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        repro_torch.resolve_device()
