@@ -6,7 +6,9 @@
 Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
 
 1. the card's name and power limit;
-2. builds the ``we_rounds`` CUDA kernel from ``src/repro_torch/csrc``;
+2. builds every CUDA kernel of the port from ``src/repro_torch/csrc``
+   (``we_rounds``, ``linear_scan``, ``flash_attention``), one ``nvcc``
+   each, all started together (this is also phase 6's build);
 3. holds the kernel against its plain PyTorch version on the card at the
    Figure 5 shape (16,384 rows x 56 bucketed workers) in four modes --
    known, unknown, drift (an AR(1) rate schedule, R = 48) and the mixed
@@ -18,7 +20,27 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
    the launch counts zeroed just before and read just after, and checks
    the paper's Figure 5 claims;
 5. times the kernel and its plain version (warm minimum of 3) at 16,384
-   and 131,072 rows, and the whole panel's wall time.
+   and 131,072 rows, and the whole panel's wall time;
+6. (the build of ``linear_scan`` and ``flash_attention``, done in 2);
+7. holds each serving kernel against its plain version on the card:
+   ``flash_attention`` at the main path's shape (4, 3000, 10 Q heads, 1
+   KV head, d 256, causal, window 2048, bf16) and at small shapes (GQA,
+   non-causal, Sq < Sk, ragged 1000, d 64, 128 and 256) in f32 (2e-5)
+   and bf16 (2e-2), as ``tests/test_kernels.py`` holds the Pallas kernel;
+   ``linear_scan`` at (4, 3000, 2560) and (3, 1001, 96), bit for bit (the
+   same rounded multiply and add in the same order);
+8. serves recurrentgemma-2b at its published width and depth in bf16
+   (weights drawn on the card from a seeded ``torch.Generator``): 4
+   requests x 3000-token prompts x 32 new tokens through
+   ``greedy_generate``, with the launch counts zeroed just before and
+   read just after (``flash_attention`` once per local-attention layer,
+   ``linear_scan`` once per RG-LRU layer); then the same tokens
+   teacher-forced through the plain path on the card (no kernel may
+   launch there), whose logits must agree with the served ones;
+9. times both kernels at the main path's shape against their bounds,
+   their plain versions and (flash) ``scaled_dot_product_attention``,
+   and the whole path: prefill wall, decode ms per token, tokens/s, peak
+   memory and the device's busy share of one profiled generate.
 
 It prints the kernel line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``.  Any failed phase exits non-zero with no result line;
@@ -26,6 +48,7 @@ without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -48,6 +71,21 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 THREEFRY_INT_OPS = 77       # 2 key adds + 20 x (add, rotate, xor) + 5 x 3
 ROW_AGREE, T_RTOL, C_RTOL, C_ATOL, MEAN_SE = 0.99, 1e-4, 1e-3, 1.0, 6.0
+# H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_STEPS = "recurrentgemma-2b", 4, \
+    3000, 32
+# flash against its plain version, as tests/test_kernels.py holds the
+# Pallas kernel: the online softmax sums in another order (f32), and the
+# bf16 output keeps 8 significand bits
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# served logits against the teacher-forced plain path, both bf16: every
+# matrix product and the decode attention round to bf16 at other places
+# in the two (decode one token at a time against a 3031-token forward).
+# One bf16 rounding is <= 2^-9 relative; 26 layers of independent
+# roundings compound to ~1.5% of the residual stream, so the relative
+# RMS error of each step's logits must stay under 5e-2.
+LOGIT_REL_RMS = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -129,6 +167,300 @@ def compare(torch, got, want):
                     mean_gap_se=float(gap))
 
 
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one sequence and head: the work the
+    attention function needs on these shapes."""
+    q_pos = np.arange(Sq) + (Sk - Sq)
+    hi = np.minimum(q_pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window > 0 else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_bound(q, window: int):
+    """(bound ms, bound_by, flops, bytes) of causal windowed attention on
+    q (B, S, Hq, d) with one K and V head set as large as q's S."""
+    B, S, Hq, d = q.shape
+    flops = 4.0 * d * Hq * B * attention_pairs(S, S, True, window)
+    nbytes = 2 * q.numel() * q.element_size() \
+        + 2 * B * S * d * q.element_size()          # q, o; k, v (Hkv 1)
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's two kernel ops to their plain versions, also on
+    CUDA tensors: the plain path on the card that the served logits are
+    held against.  The launch counts show that no kernel ran inside."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.linear_scan import linear_scan_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import recurrent as rec_mod
+    saved = attn_mod.flash_attention, rec_mod.linear_scan
+    attn_mod.flash_attention, rec_mod.linear_scan = attention_ref, \
+        linear_scan_ref
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention, rec_mod.linear_scan = saved
+
+
+def serve_phases(torch, dev):
+    """Phases 7-9; returns the two serving kernels' JSON entries."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    from repro_torch.kernels.linear_scan import (linear_scan_cuda,
+                                                 linear_scan_ref)
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import lm_prefill_hidden
+    from repro_torch.train.serve import greedy_generate
+
+    # the plain versions' float32 products stay full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    # 7. each serving kernel against its plain version on the card
+    failed = []
+    cfg = get_config(SERVE_ARCH)
+    S, W = SERVE_PROMPT, cfg.window
+    main_flash = (SERVE_B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True,
+                  W, cfg.dtype)
+    flash_cases = [main_flash] + [
+        (B, Sq, Sk, Hq, Hkv, d, causal, window, dt)
+        for dt in ("float32", "bfloat16")
+        for (B, Sq, Sk, Hq, Hkv, d, causal, window) in [
+            (2, 256, 256, 4, 2, 64, True, 0),        # GQA, g = 2
+            (2, 200, 200, 4, 2, 128, False, 0),      # non-causal
+            (1, 96, 300, 4, 1, 64, True, 0),         # Sq < Sk
+            (1, 1000, 1000, 4, 2, 128, True, 300),   # ragged, window
+            (1, 1000, 1000, 10, 1, 256, True, 512),  # MQA, d 256
+        ]]
+    flash_err = 0.0
+    main_qkv = None
+    for (B, Sq, Sk, Hq, Hkv, d, causal, window, dt) in flash_cases:
+        dtype = getattr(torch, dt)
+        q = draw((B, Sq, Hq, d), dtype)
+        k, v = draw((B, Sk, Hkv, d), dtype), draw((B, Sk, Hkv, d), dtype)
+        got = flash_attention_cuda(q, k, v, causal, window)
+        want = attention_ref(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dt]
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol))
+        label = f"({B},{Sq},{Sk},{Hq},{Hkv},{d}) causal={causal} " \
+            f"window={window} {dt}"
+        print(f"  flash_attention {label}: {'ok' if ok else 'FAIL'} "
+              f"max_abs_err={err:.3e} (tol {tol})")
+        if (B, Sq, Sk, Hq, Hkv, d, causal, window, dt) == main_flash:
+            flash_err, main_qkv = err, (q, k, v)
+        if not ok:
+            failed.append(f"flash_attention {label}")
+    scan_err = 0.0
+    main_ab = None
+    for shape in [(SERVE_B, S, cfg.lru_width), (3, 1001, 96)]:
+        a = torch.rand(shape, generator=gen, device=dev) * 0.5 + 0.5
+        b = draw(shape, torch.float32)
+        got = linear_scan_cuda(a, b)
+        want = linear_scan_ref(a, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.equal(got, want))
+        print(f"  linear_scan {shape}: {'ok' if ok else 'FAIL'} "
+              f"max_abs_err={err:.3e} (bitwise)")
+        if shape[1] == S:
+            scan_err, main_ab = err, (a, b)
+        if not ok:
+            failed.append(f"linear_scan {shape}")
+    if failed:
+        fail("kernel vs plain: " + "; ".join(failed))
+
+    # 8. the main path: recurrentgemma-2b at full width and depth, bf16
+    model = build_model(cfg)
+    kinds = cfg.layer_kinds()
+    want_launches = {"flash_attention": kinds.count("attn"),
+                     "linear_scan": kinds.count("rec")}
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    leaves = []
+
+    def collect(t):
+        if isinstance(t, dict):
+            for x in t.values():
+                collect(x)
+        else:
+            leaves.append(t)
+    collect(params)
+    n_params = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    print(f"main path: {SERVE_ARCH} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{n_params:.4e} parameters ({n_bytes / 1e9:.3f} GB), drawn on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_B, S))).to(dev)
+    s_max = S + SERVE_STEPS
+
+    def generate():
+        return greedy_generate(model, params, {"tokens": prompt},
+                               model.init_cache(SERVE_B, s_max, dev),
+                               SERVE_STEPS)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, _ = generate()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {n: _build.LAUNCH_COUNTS[n] for n in want_launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  served {SERVE_B} x {S} prompt tokens + {SERVE_STEPS} new "
+          f"tokens in {first_s:.3f} s (first run); launches {launches} "
+          f"(want {want_launches}); peak memory {peak_gb:.3f} GB")
+    if launches != want_launches:
+        fail(f"the main path's launches {launches} are not "
+             f"{want_launches}")
+    if tuple(toks.shape) != (SERVE_B, SERVE_STEPS) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"generated tokens of shape {tuple(toks.shape)} outside "
+             f"[0, {cfg.vocab_size})")
+
+    # the served logits, step by step, with the generated tokens fed back
+    cache = model.init_cache(SERVE_B, s_max, dev)
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    served = [logits[:, -1].float()]
+    for j in range(SERVE_STEPS - 1):
+        logits, cache = model.decode_step(params, cache, toks[:, j:j + 1])
+        served.append(logits[:, -1].float())
+    served = torch.stack(served, 1)                       # (B, steps, V)
+    replay = float((served.argmax(-1) == toks).float().mean())
+    # the same tokens teacher-forced through the plain path on the card
+    full = torch.cat([prompt, toks[:, :-1]], 1)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_kernels():
+        h, _ = lm_prefill_hidden(params, cfg, {"tokens": full},
+                                 model.init_cache(SERVE_B, s_max, dev))
+        plain = (h[:, S - 1:] @ params["lm_head"]).float()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if any(_build.LAUNCH_COUNTS.values()):
+        fail(f"the plain path launched kernels: {_build.LAUNCH_COUNTS}")
+    diff = served - plain
+    rel_rms = (diff.pow(2).mean((0, 2)).sqrt()
+               / plain.pow(2).mean((0, 2)).sqrt())        # per step
+    max_abs = float(diff.abs().max())
+    agree = float((plain.argmax(-1) == toks).float().mean())
+    print(f"  teacher-forced plain path ({plain_s:.2f} s): logits max "
+          f"|diff| {max_abs:.4e} (max |logit| "
+          f"{float(plain.abs().max()):.4f}); relative RMS per step: prefill "
+          f"{float(rel_rms[0]):.3e}, decode max "
+          f"{float(rel_rms[1:].max()):.3e} (limit {LOGIT_REL_RMS}); greedy "
+          f"tokens agreeing with the "
+          f"plain path {agree:.4f}; served argmax replayed {replay:.4f}")
+    if not bool(torch.isfinite(served).all()):
+        fail("served logits are not finite")
+    if float(rel_rms.max()) > LOGIT_REL_RMS:
+        fail(f"served logits differ from the plain path: relative RMS "
+             f"{float(rel_rms.max()):.3e} > {LOGIT_REL_RMS}")
+    del served, plain, h, diff, cache, logits
+
+    # 9. times: both kernels at the main path's shape, then the path
+    q, k, v = main_qkv
+    f_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, True, W))
+    f_plain = cuda_ms(torch, lambda: attention_ref(q, k, v, True, W))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib_err = float((lib_out.transpose(1, 2).float()
+                     - attention_ref(q, k, v, True, W).float()).abs().max())
+    f_lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                        enable_gqa=True))
+    f_bound, f_by, f_flops, f_bytes = flash_bound(q, W)
+    print(f"flash_attention at {tuple(q.shape)} kv {tuple(k.shape)} bf16, "
+          f"window {W}: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
+          f"sdpa (explicit mask, enable_gqa; max |diff| {lib_err:.3e}) "
+          f"{f_lib:.4f} ms; bound {f_bound:.4f} ms by {f_by} "
+          f"({f_flops:.4e} flops, {f_bytes} bytes)")
+    a, b = main_ab
+    s_ms = cuda_ms(torch, lambda: linear_scan_cuda(a, b))
+    s_plain = cuda_ms(torch, lambda: linear_scan_ref(a, b))
+    s_bytes = 3 * a.numel() * 4
+    s_bound = s_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"linear_scan at {tuple(a.shape)} f32: kernel {s_ms:.4f} ms, "
+          f"plain {s_plain:.4f} ms, no single PyTorch call; bound "
+          f"{s_bound:.4f} ms by bytes ({s_bytes} bytes)")
+
+    prefill_s = gen_s = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": prompt},
+                      model.init_cache(SERVE_B, s_max, dev))
+        torch.cuda.synchronize()
+        prefill_s = min(prefill_s, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        gen_s = min(gen_s, time.perf_counter() - t0)
+    decode_ms = (gen_s - prefill_s) / (SERVE_STEPS - 1) * 1e3
+    print(f"serve {SERVE_ARCH} {SERVE_B} x {S} + {SERVE_STEPS} (warm min "
+          f"of 2): prefill {prefill_s * 1e3:.3f} ms "
+          f"({SERVE_B * S / prefill_s:.1f} prompt tok/s), decode "
+          f"{decode_ms:.3f} ms per step, generate {gen_s * 1e3:.3f} ms "
+          f"({SERVE_B * SERVE_STEPS / gen_s:.2f} new tok/s); peak memory "
+          f"{peak_gb:.3f} GB")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in dev_events)
+    if dev_us > 0:
+        print(f"profiled generate: wall {prof_wall * 1e3:.3f} ms, device "
+              f"busy {dev_us / 1e3:.3f} ms "
+              f"({100 * dev_us / (prof_wall * 1e6):.2f}% of wall); top "
+              f"device time:")
+        for e in sorted(dev_events,
+                        key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<5d} {e.key[:70]}")
+    else:
+        print("profiled generate: the profiler recorded no device time "
+              "(device busy share not measured)")
+    return [
+        {"name": "linear_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/linear_scan.cu",
+         "replaces": "src/repro/kernels/linear_scan/kernel.py:22",
+         "launches": launches["linear_scan"], "max_abs_err": scan_err,
+         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+         "launches": launches["flash_attention"], "max_abs_err": flash_err,
+         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+         "bound_by": f_by, "library_ms": f_lib},
+    ]
+
+
 def main() -> None:
     import torch
 
@@ -153,9 +485,16 @@ def main() -> None:
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
 
-    # 2. build from the checkout's sources
-    lib, build_s = wk.build(verbose=True)
-    print(f"build: {lib.relative_to(ROOT)} in {build_s:.2f} s")
+    # 2. build every kernel from the checkout's sources, all at once
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.linear_scan import kernel as lk
+    t0 = time.perf_counter()
+    built = _build.build_all([wk.LIBRARY, lk.LIBRARY, fk.LIBRARY],
+                             verbose=True)
+    for lib, build_s in built.values():
+        print(f"build: {lib.relative_to(ROOT)} in {build_s:.2f} s")
+    print(f"build: all kernels in {time.perf_counter() - t0:.2f} s wall")
 
     # 3. kernel against its plain version at the Figure 5 shape
     points, specs = fig5_specs(HetSpec)
@@ -325,6 +664,7 @@ def main() -> None:
     print(f"bound at {rows.shape[0]} rows: {ops:.4e} int ops -> "
           f"{ops_ms:.4f} ms; {nbytes} bytes -> {bytes_ms:.5f} ms")
     B0 = rows.shape[0]
+    serve_kernels = serve_phases(torch, dev)
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -334,7 +674,7 @@ def main() -> None:
         "ms": times[B0][0], "plain_ms": times[B0][1],
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None}]}))
+        "library_ms": None}] + serve_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

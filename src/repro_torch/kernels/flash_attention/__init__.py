@@ -1,0 +1,6 @@
+"""GQA flash attention forward (causal, sliding window)."""
+from .kernel import flash_attention_cuda
+from .ops import flash_attention
+from .ref import attention_ref
+
+__all__ = ["attention_ref", "flash_attention", "flash_attention_cuda"]

@@ -1,0 +1,54 @@
+"""Model facade: uniform init / prefill / decode across families, the
+port of ``repro.models.registry`` for serving.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``, which
+raises without a card.  The encoder-decoder family comes with a later
+slice of the port; training (``loss``) with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import DEFAULT_DEVICE, resolve_device
+from . import transformer as tf_mod
+
+
+def _lm_only(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family comes with a later "
+            "slice of the port (seamless-m4t serving)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device=DEFAULT_DEVICE) -> Any:
+        """Random weights from a ``torch.Generator`` seeded with ``seed``
+        on ``device``."""
+        _lm_only(self.cfg)
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        return tf_mod.init_lm_params(self.cfg, gen, dev)
+
+    def init_cache(self, batch: int, s_max: int, device=DEFAULT_DEVICE):
+        _lm_only(self.cfg)
+        return tf_mod.init_cache(self.cfg, batch, s_max,
+                                 resolve_device(device))
+
+    def prefill(self, params, batch, cache, mode: str = "unroll"):
+        _lm_only(self.cfg)
+        return tf_mod.lm_prefill(params, self.cfg, batch, cache, mode)
+
+    def decode_step(self, params, cache, tokens, mode: str = "unroll"):
+        _lm_only(self.cfg)
+        return tf_mod.lm_decode_step(params, self.cfg, cache, tokens, mode)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,257 @@
+"""Decoder-LM assembly for serving: the port of
+``repro.models.transformer`` for the block kinds ``attn`` (dense, not
+MoE) and ``rec`` (RG-LRU).
+
+Layers are grouped into repeating "periods" (the block pattern of hybrid
+archs; period 1 for homogeneous stacks).  Parameters keep the JAX
+package's layout, so weights carry across leaf for leaf:
+  params["body"] = {"b<i>": block-params stacked over n_periods}
+  params["tail"] = {"t<i>": block-params}
+PyTorch runs eagerly, so ``mode="scan"`` and ``"unroll"`` are the same
+Python loop over the periods (indexing a stacked weight is a view).
+Caches keep one buffer per layer (the JAX package's ``stacked=False``
+serving layout): ``{"body": {"b<i>": [per-period cache]}, "tail":
+{"t<i>": cache}, "pos": int}``.
+
+MoE, MLA, xLSTM (mlstm / slstm) and the vision frontend come with later
+slices of the port and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from . import attention as attn
+from . import recurrent as rec_mod
+from .common import (Params, dense_init, dtype_of, embed_init, rmsnorm,
+                     swiglu, swiglu_init)
+
+MODES = ("scan", "unroll")
+
+
+# ---------------------------------------------------------------------------
+# layer plan and what this slice serves
+# ---------------------------------------------------------------------------
+
+def layer_plan(cfg):
+    kinds = cfg.layer_kinds()
+    if cfg.block_pattern:
+        p = len(cfg.block_pattern)
+    elif cfg.slstm_every:
+        p = cfg.slstm_every
+    else:
+        p = 1
+    full = cfg.n_layers // p
+    tail = kinds[full * p:]
+    return kinds[:p], full, tail
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for what a later slice ports."""
+    later = []
+    if cfg.is_moe:
+        later.append("MoE blocks (the granite-moe serving slice, which "
+                     "wires in the expert_matmul kernel)")
+    if cfg.attn_kind == "mla":
+        later.append("MLA attention (the minicpm3 slice)")
+    if cfg.slstm_every:
+        later.append("mLSTM / sLSTM blocks (the xLSTM slice)")
+    if cfg.frontend == "vision":
+        later.append("the vision frontend (the internvl2 slice)")
+    if later:
+        raise NotImplementedError(
+            f"{cfg.name}: " + "; ".join(later) + " come with a later slice "
+            "of the port; this slice serves dense GQA and RG-LRU stacks")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}; got {mode!r}")
+
+
+def _window(cfg) -> int:
+    return cfg.window if cfg.attn_kind == "swa" or cfg.block_pattern else 0
+
+
+# ---------------------------------------------------------------------------
+# block init / apply by kind
+# ---------------------------------------------------------------------------
+
+def _block_init(gen, cfg, kind: str, dtype, device) -> Params:
+    D = cfg.d_model
+    zeros = dict(dtype=dtype, device=device)
+    if kind == "attn":
+        return {"ln1": torch.zeros((D,), **zeros),
+                "attn": attn.gqa_init(gen, cfg, dtype, device),
+                "ln2": torch.zeros((D,), **zeros),
+                "mlp": swiglu_init(gen, D, cfg.d_ff, dtype, device)}
+    if kind == "rec":
+        return {"ln1": torch.zeros((D,), **zeros),
+                "rec": rec_mod.rglru_init(gen, cfg, dtype, device),
+                "ln2": torch.zeros((D,), **zeros),
+                "mlp": swiglu_init(gen, D, cfg.d_ff, dtype, device)}
+    raise ValueError(kind)
+
+
+def _block_cache_init(cfg, kind: str, batch: int, s_max: int, dtype,
+                      device) -> Params:
+    if kind == "attn":
+        return attn.gqa_cache_init(cfg, batch, s_max, _window(cfg), dtype,
+                                   device)
+    if kind == "rec":
+        return rec_mod.rglru_cache_init(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
+                   cache: Params) -> Tuple[torch.Tensor, Params]:
+    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        y, cache = attn.gqa_prefill(p["attn"], cfg, x, cache, _window(cfg))
+    elif kind == "rec":
+        y, cache = rec_mod.rglru_prefill(p["rec"], cfg, x)
+    else:
+        raise ValueError(kind)
+    h = h + y
+    return h + swiglu(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)), cache
+
+
+def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
+                  cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
+    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        y, cache = attn.gqa_decode(p["attn"], cfg, x, cache, pos,
+                                   _window(cfg))
+    elif kind == "rec":
+        y, cache = rec_mod.rglru_decode(p["rec"], cfg, x, cache)
+    else:
+        raise ValueError(kind)
+    h = h + y
+    return h + swiglu(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)), cache
+
+
+# ---------------------------------------------------------------------------
+# full-model init
+# ---------------------------------------------------------------------------
+
+def _stack(trees: List[Any]) -> Any:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _index(tree: Any, j: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _index(v, j) for k, v in tree.items()}
+    return tree[j]
+
+
+def init_lm_params(cfg, gen: torch.Generator, device: torch.device
+                   ) -> Params:
+    """Random weights drawn from ``gen`` on ``device`` (``meta`` makes the
+    shapes only), in the JAX package's layout and dtypes."""
+    check_supported(cfg)
+    dt = dtype_of(cfg)
+    period, full, tail = layer_plan(cfg)
+    params: Params = {
+        "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dt, device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_padded, dt,
+                              device),
+    }
+    params["body"] = {
+        f"b{i}": _stack([_block_init(gen, cfg, kind, dt, device)
+                         for _ in range(full)])
+        for i, kind in enumerate(period)}
+    params["tail"] = {f"t{i}": _block_init(gen, cfg, kind, dt, device)
+                      for i, kind in enumerate(tail)}
+    return params
+
+
+def init_cache(cfg, batch: int, s_max: int, device: torch.device) -> Params:
+    check_supported(cfg)
+    dt = dtype_of(cfg)
+    period, full, tail = layer_plan(cfg)
+    return {
+        "body": {f"b{i}": [_block_cache_init(cfg, kind, batch, s_max, dt,
+                                             device) for _ in range(full)]
+                 for i, kind in enumerate(period)},
+        "tail": {f"t{i}": _block_cache_init(cfg, kind, batch, s_max, dt,
+                                            device)
+                 for i, kind in enumerate(tail)},
+        "pos": 0}
+
+
+# ---------------------------------------------------------------------------
+# stack execution
+# ---------------------------------------------------------------------------
+
+def _run_stack(params: Params, cfg, h: torch.Tensor, cache: Params,
+               step) -> Tuple[torch.Tensor, Params]:
+    """Apply ``step(p, kind, h, layer_cache) -> (h, layer_cache)`` over
+    the body periods, then the tail; returns h and the new caches."""
+    period, full, tail = layer_plan(cfg)
+    body: Dict[str, List[Params]] = {f"b{i}": [] for i in range(len(period))}
+    for j in range(full):
+        for i, kind in enumerate(period):
+            key = f"b{i}"
+            h, c = step(_index(params["body"][key], j), kind, h,
+                        cache["body"][key][j])
+            body[key].append(c)
+    tail_c = {}
+    for i, kind in enumerate(tail):
+        key = f"t{i}"
+        h, tail_c[key] = step(params["tail"][key], kind, h,
+                              cache["tail"][key])
+    return h, {"body": body, "tail": tail_c}
+
+
+def _mask_padded_vocab(cfg, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.vocab_padded == cfg.vocab_size:
+        return logits
+    pad = torch.arange(cfg.vocab_padded, device=logits.device) \
+        >= cfg.vocab_size
+    return logits.masked_fill(pad, torch.finfo(logits.dtype).min)
+
+
+def lm_prefill_hidden(params: Params, cfg, batch, cache: Params
+                      ) -> Tuple[torch.Tensor, Params]:
+    """Prefill the stack over ``batch["tokens"]`` (B, S): returns the
+    final-normed hidden states of every position (B, S, D) and the
+    populated cache."""
+    check_supported(cfg)
+    h = params["embed"][batch["tokens"]]
+
+    def step(p, kind, h, c):
+        return _block_prefill(p, cfg, kind, h, c)
+
+    h, new_cache = _run_stack(params, cfg, h, cache, step)
+    new_cache["pos"] = h.shape[1]
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_cache
+
+
+def lm_prefill(params: Params, cfg, batch, cache: Params,
+               mode: str = "unroll") -> Tuple[torch.Tensor, Params]:
+    """Prefill: returns (last-position logits (B, 1, V), populated
+    cache)."""
+    _check_mode(mode)
+    h, cache = lm_prefill_hidden(params, cfg, batch, cache)
+    return _mask_padded_vocab(cfg, h[:, -1:] @ params["lm_head"]), cache
+
+
+def lm_decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
+                   mode: str = "unroll") -> Tuple[torch.Tensor, Params]:
+    """One-token decode. tokens: (B, 1). Returns (logits, cache)."""
+    _check_mode(mode)
+    check_supported(cfg)
+    pos = cache["pos"]
+    h = params["embed"][tokens]
+
+    def step(p, kind, h, c):
+        return _block_decode(p, cfg, kind, h, c, pos)
+
+    h, new_cache = _run_stack(params, cfg, h, cache, step)
+    new_cache["pos"] = pos + 1
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _mask_padded_vocab(cfg, h @ params["lm_head"]), new_cache

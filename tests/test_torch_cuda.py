@@ -1,5 +1,7 @@
-"""The hand-written CUDA ``we_rounds`` kernel against its plain PyTorch
-version, on the card.  Torch only (the machine with the card has no JAX):
+"""The hand-written CUDA kernels (``we_rounds``, ``linear_scan``,
+``flash_attention``) against their plain PyTorch versions, on the card,
+and the serving slice's kernel path against its CPU path.  Torch only
+(the machine with the card has no JAX):
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
 
@@ -15,12 +17,26 @@ uses, and why:
   ``t_comp`` agrees to rtol 1e-4 and ``n_comm`` to rtol 1e-3 plus one
   work unit (it sums differences of nearly equal float32 assignments,
   which cancels digits); batch means agree at 6 combined standard errors.
+
+``linear_scan`` is bitwise equal to its plain version: the same float32
+multiply and add per step, in the same order, each rounded (the kernel is
+built with ``--fmad=false``).  ``flash_attention`` agrees to 2e-5 in
+float32 and 2e-2 in bfloat16 (as ``tests/test_kernels.py``): the online
+softmax sums in another order, and bfloat16 output rounds to 8 bits.
 """
 import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.kernels._build import LAUNCH_COUNTS, reset_launch_counts
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention_cuda)
+from repro_torch.kernels.linear_scan import linear_scan_cuda, linear_scan_ref
 from repro_torch.kernels.we_rounds import kernel, ref
+from repro_torch.models import build_model
 
 ROW_AGREE, T_RTOL, C_RTOL, C_ATOL, MEAN_SE = 0.99, 1e-4, 1e-3, 1.0, 6.0
 SEED = (11, 22)
@@ -96,3 +112,104 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="one round"):
         kernel.we_rounds_cuda(torch.ones(4, 8, device=cuda_device), SEED,
                               torch.ones(4, 0, 8, device=cuda_device), **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,D", [(3, 1001, 96), (2, 64, 2560),
+                                   (1, 17, 1)])
+def test_linear_scan_kernel_is_bitwise_plain_version(cuda_device, B, S, D):
+    rng = np.random.default_rng(S)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, S, D)).astype(
+        np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal((B, S, D)).astype(
+        np.float32)).to(cuda_device)
+    before = LAUNCH_COUNTS["linear_scan"]
+    got = linear_scan_cuda(a, b)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["linear_scan"] == before + 1
+    torch.testing.assert_close(got, linear_scan_ref(a, b), rtol=0, atol=0)
+
+
+FLASH_CASES = [
+    # (B, Sq, Sk, Hq, Hkv, d, causal, window)
+    (1, 64, 64, 2, 2, 16, True, 0),
+    (2, 128, 128, 4, 2, 32, True, 0),        # GQA, g = 2
+    (1, 100, 100, 10, 1, 256, True, 24),     # MQA, window, ragged
+    (2, 64, 64, 2, 2, 64, False, 0),         # non-causal
+    (1, 32, 130, 2, 1, 128, True, 0),        # Sq < Sk, right-aligned
+    (1, 1000, 1000, 4, 2, 64, True, 300),    # ragged Sq = Sk = 1000
+    (1, 1000, 1000, 2, 1, 128, False, 200),  # non-causal with a window
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,d,causal,window", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, B, Sq,
+                                            Sk, Hq, Hkv, d, causal, window):
+    rng = np.random.default_rng(Sq + d)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda_device, dtype)
+
+    q, k, v = draw(B, Sq, Hq, d), draw(B, Sk, Hkv, d), draw(B, Sk, Hkv, d)
+    before = LAUNCH_COUNTS["flash_attention"]
+    got = flash_attention_cuda(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention"] == before + 1
+    want = attention_ref(q, k, v, causal, window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.ones(1, 8, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(x, x, x)
+    h = torch.ones(1, 8, 2, 16, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(h, h, h)
+    q = torch.ones(1, 8, 3, 16, device=cuda_device)
+    kv = torch.ones(1, 8, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention_cuda(q, kv, kv)
+    a = torch.ones(2, 5, 3, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        linear_scan_cuda(a, a)
+
+
+@pytest.mark.gpu
+def test_serve_path_on_the_card_runs_the_kernels(cuda_device):
+    """The recurrentgemma smoke model in float32: prefill and decode on
+    the card launch one kernel per layer of each kind and agree with the
+    same weights on the CPU (float32 matrix products stay full float32 on
+    the card by default) at rtol and atol 1e-4."""
+    cfg = dataclasses.replace(smoke_config(get_config("recurrentgemma-2b")),
+                              dtype="float32")
+    m = build_model(cfg)
+    params = m.init(0, "cpu")
+    gpu_params = _to(params, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)))
+    outs = {}
+    for dev, p in (("cpu", params), (cuda_device, gpu_params)):
+        reset_launch_counts()
+        cache = m.init_cache(2, 24, dev)
+        logits, cache = m.prefill(p, {"tokens": toks.to(dev)}, cache)
+        steps = [logits]
+        for t in range(2):
+            logits, cache = m.decode_step(p, cache, toks[:, t:t + 1].to(dev))
+            steps.append(logits)
+        outs[str(dev)] = torch.cat(steps, 1).cpu()
+        counts = dict(LAUNCH_COUNTS)
+    assert counts["flash_attention"] == 2 and counts["linear_scan"] == 4
+    torch.testing.assert_close(outs[str(cuda_device)], outs["cpu"],
+                               rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

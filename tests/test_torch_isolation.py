@@ -11,7 +11,10 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import HetSpec, get_scheme
+from repro_torch.launch import serve
+from repro_torch.models import build_model
 
 PKG = Path(repro_torch.__file__).resolve().parent
 
@@ -30,6 +33,17 @@ def test_imports_and_runs_with_jax_and_repro_blocked():
         "r = get_scheme('work_exchange_unknown').mc(het, 5000, 16, rng, "
         "device='cpu')\n"
         "assert np.isfinite(r.t_comp) and r.extra['backend'] == 'cuda'\n"
+        "import dataclasses, torch\n"
+        "from repro_torch.configs import get_config, smoke_config\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.train.serve import greedy_generate\n"
+        "cfg = dataclasses.replace(smoke_config(get_config("
+        "'recurrentgemma-2b')), dtype='float32')\n"
+        "m = build_model(cfg)\n"
+        "toks, _ = greedy_generate(m, m.init(0, 'cpu'), {'tokens': "
+        "torch.zeros((2, 20), dtype=torch.long)}, m.init_cache(2, 24, "
+        "'cpu'), 4)\n"
+        "assert toks.shape == (2, 4)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok', r.t_comp)\n")
@@ -52,7 +66,7 @@ def _imported_modules(path: Path):
 
 def test_source_imports_no_jax_and_no_repro():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 10
+    assert len(files) >= 40
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
@@ -71,3 +85,8 @@ def test_default_device_raises_without_a_card():
             get_scheme(name).mc(het, 1000, 4, np.random.default_rng(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.resolve_device()
+    model = build_model(smoke_config(get_config("recurrentgemma-2b")))
+    for call in (model.init, lambda: model.init_cache(2, 8),
+                 lambda: serve.main(["--arch", "recurrentgemma-2b"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
