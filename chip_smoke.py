@@ -7,8 +7,9 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
 
 1. the card's name and power limit;
 2. builds every CUDA kernel of the port from ``src/repro_torch/csrc``
-   (``we_rounds``, ``linear_scan``, ``flash_attention``), one ``nvcc``
-   each, all started together (this is also phase 6's build);
+   (``we_rounds``, ``linear_scan``, ``flash_attention``,
+   ``expert_matmul``), one ``nvcc`` each, all started together (this is
+   also phase 6's build);
 3. holds the kernel against its plain PyTorch version on the card at the
    Figure 5 shape (16,384 rows x 56 bucketed workers) in four modes --
    known, unknown, drift (an AR(1) rate schedule, R = 48) and the mixed
@@ -40,9 +41,36 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
 9. times both kernels at the main path's shape against their bounds,
    their plain versions and (flash) ``scaled_dot_product_attention``,
    and the whole path: prefill wall, decode ms per token, tokens/s, peak
-   memory and the device's busy share of one profiled generate.
+   memory and the device's busy share of one profiled generate;
+10. holds ``expert_matmul`` against its plain version on the card at the
+    granite-moe main path's four shapes in bf16 (prefill gate/up
+    (40, 2000, 1536) x (40, 1536, 512), prefill down (40, 2000, 512) x
+    (40, 512, 1536), and the two decode shapes at C = 8) and at small
+    ragged shapes in f32 (1e-5) and bf16 (3e-2), as
+    ``tests/test_kernels.py`` holds the Pallas kernel; and
+    ``flash_attention`` at granite's prefill shape (4, 2000, 24 Q heads,
+    8 KV heads, d 64, causal, no window, bf16) at 2e-2, as in 7;
+11. holds one granite-moe MoE layer at full width, (4, 2000, 1536) bf16,
+    with the kernel against the same layer under the plain version (the
+    routing is the same computation on the same x), and prints the share
+    of (token, k) pairs dropped at C = 2000;
+12. serves granite-moe-3b-a800m at its published width and depth in
+    bf16 (weights drawn on the card from seed 0): 4 requests x
+    2000-token prompts x 32 new tokens through ``greedy_generate``, with
+    the launch counts zeroed just before and read just after
+    (``flash_attention`` 32, ``expert_matmul`` 3072, the others 0); then
+    the same prefill-then-decode schedule, fed the served tokens,
+    through the plain path on the card (no kernel may launch there),
+    whose logits must agree with the served ones step by step;
+13. times ``expert_matmul`` at the main path's shapes against its bound,
+    its plain version and ``torch.bmm``, ``flash_attention`` at
+    granite's shape as in 9, and the whole path: prefill
+    wall, decode ms per step, tokens/s, peak memory and the device's
+    busy share of one profiled generate.
 
-It prints the kernel line ``{"kernels": [...]}`` and, last, ``{"ok": true,
+It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
+main path, named by ``path``: flash attention has one for each serving
+path) and, last, ``{"ok": true,
 "device": {...}}``.  Any failed phase exits non-zero with no result line;
 without a CUDA device it exits 1 at once.
 """
@@ -86,6 +114,23 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # roundings compound to ~1.5% of the residual stream, so the relative
 # RMS error of each step's logits must stay under 5e-2.
 LOGIT_REL_RMS = 5e-2
+MOE_ARCH, MOE_B, MOE_PROMPT, MOE_STEPS = "granite-moe-3b-a800m", 4, 2000, 32
+# expert_matmul against its plain version, as tests/test_kernels.py holds
+# the Pallas kernel: both sum in float32, in another order
+GMM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# one MoE layer, kernel against plain: the products' bf16 outputs differ
+# only where the two float32 sums straddle a rounding boundary, by one
+# bf16 ulp (<= 2^-8 relative); if every element did, the relative RMS
+# would be ~3e-3, and the sums agree to ~1e-6, so 1e-3 allows far more
+# such elements than expected
+MOE_LAYER_REL_RMS = 1e-3
+# served logits against the plain path on the same schedule, both bf16:
+# bf16 roundings at other places in flash attention and the expert
+# products compound through 32 layers as in phase 8 (~2.4% there, on
+# recurrentgemma), and a perturbed hidden state flips some
+# near-tied top-8 routing choices, each moving ~7% of the router weight
+# of a token to another expert; 1e-1 bounds both
+MOE_LOGIT_REL_RMS = 1e-1
 
 
 def fail(msg: str) -> None:
@@ -176,13 +221,137 @@ def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def flash_bound(q, window: int):
+def flash_bound(q, k, window: int):
     """(bound ms, bound_by, flops, bytes) of causal windowed attention on
-    q (B, S, Hq, d) with one K and V head set as large as q's S."""
-    B, S, Hq, d = q.shape
-    flops = 4.0 * d * Hq * B * attention_pairs(S, S, True, window)
-    nbytes = 2 * q.numel() * q.element_size() \
-        + 2 * B * S * d * q.element_size()          # q, o; k, v (Hkv 1)
+    q (B, Sq, Hq, d) and k, v (B, Sk, Hkv, d)."""
+    B, Sq, Hq, d = q.shape
+    flops = 4.0 * d * Hq * B * attention_pairs(Sq, k.shape[1], True, window)
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, o; k, v
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
+
+
+def profile_generate(torch, generate) -> None:
+    """One profiled generate: wall, the device's busy share, and the ten
+    device kernels that took the most time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in dev_events)
+    if dev_us > 0:
+        print(f"profiled generate: wall {prof_wall * 1e3:.3f} ms, device "
+              f"busy {dev_us / 1e3:.3f} ms "
+              f"({100 * dev_us / (prof_wall * 1e6):.2f}% of wall); top "
+              f"device time:")
+        for e in sorted(dev_events,
+                        key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<5d} {e.key[:70]}")
+    else:
+        print("profiled generate: the profiler recorded no device time "
+              "(device busy share not measured)")
+
+
+def leaves(tree):
+    """The tensors of a parameter tree."""
+    if isinstance(tree, dict):
+        for x in tree.values():
+            yield from leaves(x)
+    else:
+        yield tree
+
+
+def describe_params(params) -> tuple:
+    """(parameter count, bytes) of a parameter tree."""
+    return (sum(x.numel() for x in leaves(params)),
+            sum(x.numel() * x.element_size() for x in leaves(params)))
+
+
+def rel_rms(got, want, dims=None):
+    """Relative RMS of ``got - want`` (over ``dims``, or all)."""
+    d = (got.float() - want.float()).pow(2)
+    w = want.float().pow(2)
+    if dims is None:
+        return float(d.mean().sqrt() / w.mean().sqrt())
+    return d.mean(dims).sqrt() / w.mean(dims).sqrt()
+
+
+def check_flash(torch, draw, case):
+    """Hold ``flash_attention_cuda`` against ``attention_ref`` on one
+    case (B, Sq, Sk, Hq, Hkv, d, causal, window, dtype name) of inputs
+    from ``draw``, at ``FLASH_TOL``.  Returns (ok, max abs error, label,
+    (q, k, v))."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    B, Sq, Sk, Hq, Hkv, d, causal, window, dt = case
+    dtype = getattr(torch, dt)
+    q = draw((B, Sq, Hq, d), dtype)
+    k, v = draw((B, Sk, Hkv, d), dtype), draw((B, Sk, Hkv, d), dtype)
+    got = flash_attention_cuda(q, k, v, causal, window)
+    want = attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = FLASH_TOL[dt]
+    ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+    label = f"({B},{Sq},{Sk},{Hq},{Hkv},{d}) causal={causal} " \
+        f"window={window} {dt}"
+    print(f"  flash_attention {label}: {'ok' if ok else 'FAIL'} "
+          f"max_abs_err={err:.3e} (tol {tol})")
+    return ok, err, label, (q, k, v)
+
+
+def time_flash(torch, qkv, window: int):
+    """Causal flash attention on one main path's q, k, v: the kernel, its
+    plain version and ``scaled_dot_product_attention`` (an explicit
+    window mask, else ``is_causal``; ``enable_gqa``), warm min of 3, and
+    the bound.  Returns (ms, plain ms, library ms, bound ms, bound_by)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    q, k, v = qkv
+    f_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, True,
+                                                       window))
+    f_plain = cuda_ms(torch, lambda: attention_ref(q, k, v, True, window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        pos = torch.arange(q.shape[1], device=q.device)
+        kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                  & (pos[None, :] > pos[:, None] - window))
+    else:
+        kw = dict(is_causal=True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw)
+
+    lib_err = float((sdpa().transpose(1, 2).float()
+                     - attention_ref(q, k, v, True, window).float()
+                     ).abs().max())
+    f_lib = cuda_ms(torch, sdpa)
+    f_bound, f_by, f_flops, f_bytes = flash_bound(q, k, window)
+    print(f"flash_attention at {tuple(q.shape)} kv {tuple(k.shape)} "
+          f"{str(q.dtype).replace('torch.', '')}, window {window}: kernel "
+          f"{f_ms:.4f} ms, plain {f_plain:.4f} ms, sdpa "
+          f"({'explicit mask' if window else 'is_causal'}, enable_gqa; max "
+          f"|diff| {lib_err:.3e}) {f_lib:.4f} ms; bound {f_bound:.4f} ms by "
+          f"{f_by} ({f_flops:.4e} flops, {f_bytes} bytes)")
+    return f_ms, f_plain, f_lib, f_bound, f_by
+
+
+def gmm_bound(E: int, C: int, D: int, F: int, elem: int):
+    """(bound ms, bound_by, flops, bytes) of (E, C, D) x (E, D, F): each
+    operand read once and the output written once, 2 flops per
+    multiply-add at the bf16 tensor-core rate."""
+    flops = 2.0 * E * C * D * F
+    nbytes = (E * C * D + E * D * F + E * C * F) * elem
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), \
@@ -191,28 +360,30 @@ def flash_bound(q, window: int):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's two kernel ops to their plain versions, also on
+    """Route the model's kernel ops to their plain versions, also on
     CUDA tensors: the plain path on the card that the served logits are
     held against.  The launch counts show that no kernel ran inside."""
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.linear_scan import linear_scan_ref
+    from repro_torch.kernels.moe_gmm import expert_matmul_ref
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import recurrent as rec_mod
-    saved = attn_mod.flash_attention, rec_mod.linear_scan
-    attn_mod.flash_attention, rec_mod.linear_scan = attention_ref, \
-        linear_scan_ref
+    saved = attn_mod.flash_attention, rec_mod.linear_scan, \
+        moe_mod.expert_matmul
+    attn_mod.flash_attention, rec_mod.linear_scan, moe_mod.expert_matmul = \
+        attention_ref, linear_scan_ref, expert_matmul_ref
     try:
         yield
     finally:
-        attn_mod.flash_attention, rec_mod.linear_scan = saved
+        attn_mod.flash_attention, rec_mod.linear_scan, \
+            moe_mod.expert_matmul = saved
 
 
 def serve_phases(torch, dev):
     """Phases 7-9; returns the two serving kernels' JSON entries."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention_cuda)
     from repro_torch.kernels.linear_scan import (linear_scan_cuda,
                                                  linear_scan_ref)
     from repro_torch.models import build_model
@@ -246,23 +417,10 @@ def serve_phases(torch, dev):
         ]]
     flash_err = 0.0
     main_qkv = None
-    for (B, Sq, Sk, Hq, Hkv, d, causal, window, dt) in flash_cases:
-        dtype = getattr(torch, dt)
-        q = draw((B, Sq, Hq, d), dtype)
-        k, v = draw((B, Sk, Hkv, d), dtype), draw((B, Sk, Hkv, d), dtype)
-        got = flash_attention_cuda(q, k, v, causal, window)
-        want = attention_ref(q, k, v, causal, window)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        tol = FLASH_TOL[dt]
-        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol))
-        label = f"({B},{Sq},{Sk},{Hq},{Hkv},{d}) causal={causal} " \
-            f"window={window} {dt}"
-        print(f"  flash_attention {label}: {'ok' if ok else 'FAIL'} "
-              f"max_abs_err={err:.3e} (tol {tol})")
-        if (B, Sq, Sk, Hq, Hkv, d, causal, window, dt) == main_flash:
-            flash_err, main_qkv = err, (q, k, v)
+    for case in flash_cases:
+        ok, err, label, qkv = check_flash(torch, draw, case)
+        if case == main_flash:
+            flash_err, main_qkv = err, qkv
         if not ok:
             failed.append(f"flash_attention {label}")
     scan_err = 0.0
@@ -292,17 +450,7 @@ def serve_phases(torch, dev):
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
-    leaves = []
-
-    def collect(t):
-        if isinstance(t, dict):
-            for x in t.values():
-                collect(x)
-        else:
-            leaves.append(t)
-    collect(params)
-    n_params = sum(x.numel() for x in leaves)
-    n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    n_params, n_bytes = describe_params(params)
     print(f"main path: {SERVE_ARCH} {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}: "
           f"{n_params:.4e} parameters ({n_bytes / 1e9:.3f} GB), drawn on "
@@ -357,44 +505,25 @@ def serve_phases(torch, dev):
     plain_s = time.perf_counter() - t0
     if any(_build.LAUNCH_COUNTS.values()):
         fail(f"the plain path launched kernels: {_build.LAUNCH_COUNTS}")
-    diff = served - plain
-    rel_rms = (diff.pow(2).mean((0, 2)).sqrt()
-               / plain.pow(2).mean((0, 2)).sqrt())        # per step
-    max_abs = float(diff.abs().max())
+    step_rms = rel_rms(served, plain, (0, 2))                 # per step
+    max_abs = float((served - plain).abs().max())
     agree = float((plain.argmax(-1) == toks).float().mean())
     print(f"  teacher-forced plain path ({plain_s:.2f} s): logits max "
           f"|diff| {max_abs:.4e} (max |logit| "
           f"{float(plain.abs().max()):.4f}); relative RMS per step: prefill "
-          f"{float(rel_rms[0]):.3e}, decode max "
-          f"{float(rel_rms[1:].max()):.3e} (limit {LOGIT_REL_RMS}); greedy "
+          f"{float(step_rms[0]):.3e}, decode max "
+          f"{float(step_rms[1:].max()):.3e} (limit {LOGIT_REL_RMS}); greedy "
           f"tokens agreeing with the "
           f"plain path {agree:.4f}; served argmax replayed {replay:.4f}")
     if not bool(torch.isfinite(served).all()):
         fail("served logits are not finite")
-    if float(rel_rms.max()) > LOGIT_REL_RMS:
+    if float(step_rms.max()) > LOGIT_REL_RMS:
         fail(f"served logits differ from the plain path: relative RMS "
-             f"{float(rel_rms.max()):.3e} > {LOGIT_REL_RMS}")
-    del served, plain, h, diff, cache, logits
+             f"{float(step_rms.max()):.3e} > {LOGIT_REL_RMS}")
+    del served, plain, h, cache, logits
 
     # 9. times: both kernels at the main path's shape, then the path
-    q, k, v = main_qkv
-    f_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, True, W))
-    f_plain = cuda_ms(torch, lambda: attention_ref(q, k, v, True, W))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pos = torch.arange(S, device=dev)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
-    lib_out = sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-    lib_err = float((lib_out.transpose(1, 2).float()
-                     - attention_ref(q, k, v, True, W).float()).abs().max())
-    f_lib = cuda_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                        enable_gqa=True))
-    f_bound, f_by, f_flops, f_bytes = flash_bound(q, W)
-    print(f"flash_attention at {tuple(q.shape)} kv {tuple(k.shape)} bf16, "
-          f"window {W}: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
-          f"sdpa (explicit mask, enable_gqa; max |diff| {lib_err:.3e}) "
-          f"{f_lib:.4f} ms; bound {f_bound:.4f} ms by {f_by} "
-          f"({f_flops:.4e} flops, {f_bytes} bytes)")
+    f_ms, f_plain, f_lib, f_bound, f_by = time_flash(torch, main_qkv, W)
     a, b = main_ab
     s_ms = cuda_ms(torch, lambda: linear_scan_cuda(a, b))
     s_plain = cuda_ms(torch, lambda: linear_scan_ref(a, b))
@@ -422,43 +551,262 @@ def serve_phases(torch, dev):
           f"{decode_ms:.3f} ms per step, generate {gen_s * 1e3:.3f} ms "
           f"({SERVE_B * SERVE_STEPS / gen_s:.2f} new tok/s); peak memory "
           f"{peak_gb:.3f} GB")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        generate()
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-    dev_us = sum(e.self_device_time_total for e in dev_events)
-    if dev_us > 0:
-        print(f"profiled generate: wall {prof_wall * 1e3:.3f} ms, device "
-              f"busy {dev_us / 1e3:.3f} ms "
-              f"({100 * dev_us / (prof_wall * 1e6):.2f}% of wall); top "
-              f"device time:")
-        for e in sorted(dev_events,
-                        key=lambda e: -e.self_device_time_total)[:10]:
-            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{e.count:<5d} {e.key[:70]}")
-    else:
-        print("profiled generate: the profiler recorded no device time "
-              "(device busy share not measured)")
+    profile_generate(torch, generate)
     return [
-        {"name": "linear_scan", "route": "cuda",
+        {"name": "linear_scan", "path": SERVE_ARCH, "route": "cuda",
          "source": "src/repro_torch/csrc/linear_scan.cu",
          "replaces": "src/repro/kernels/linear_scan/kernel.py:22",
          "launches": launches["linear_scan"], "max_abs_err": scan_err,
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
          "bound_by": "bytes", "library_ms": None},
-        {"name": "flash_attention", "route": "cuda",
+        {"name": "flash_attention", "path": SERVE_ARCH, "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
          "launches": launches["flash_attention"], "max_abs_err": flash_err,
          "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
          "bound_by": f_by, "library_ms": f_lib},
     ]
+
+
+def moe_phases(torch, dev):
+    """Phases 10-13; returns the JSON entries of expert_matmul and of
+    flash_attention at granite's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gmm import (expert_matmul_cuda,
+                                             expert_matmul_ref)
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import _window
+    from repro_torch.train.serve import greedy_generate
+
+    cfg = get_config(MOE_ARCH)
+    E, D, Ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    T = MOE_B * MOE_PROMPT
+    C = moe_mod._capacity(T, cfg)
+    C_dec = moe_mod._capacity(MOE_B, cfg)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def operands(E_, C_, D_, F_, dtype):
+        buf = torch.randn((E_, C_, D_), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((E_, D_, F_), generator=gen, device=dev)
+             * D_ ** -0.5).to(dtype)
+        return buf, w
+
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # 10. the kernel against its plain version on the card, and flash
+    # attention at the shape of granite's prefill (GQA 24/8, d 64, ragged)
+    flash_case = (MOE_B, MOE_PROMPT, MOE_PROMPT, cfg.n_heads,
+                  cfg.n_kv_heads, cfg.hd, True, _window(cfg), cfg.dtype)
+    flash_ok, flash_err, flash_label, flash_qkv = check_flash(
+        torch, draw, flash_case)
+    main_shapes = {"prefill gate/up": (E, C, D, Ff),
+                   "prefill down": (E, C, Ff, D),
+                   "decode gate/up": (E, C_dec, D, Ff),
+                   "decode down": (E, C_dec, Ff, D)}
+    cases = [(label, shape, "bfloat16")
+             for label, shape in main_shapes.items()] + [
+        ("ragged", shape, dt) for dt in ("float32", "bfloat16")
+        for shape in [(1, 1, 24, 96), (3, 7, 200, 24), (8, 130, 96, 200),
+                      (5, 130, 200, 200), (8, 7, 24, 24), (2, 1, 96, 200)]]
+    failed = [] if flash_ok else [f"flash_attention {flash_label}"]
+    gmm_err = 0.0
+    for label, (e, c, d, f), dt in cases:
+        buf, w = operands(e, c, d, f, getattr(torch, dt))
+        got = expert_matmul_cuda(buf, w)
+        want = expert_matmul_ref(buf, w)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = GMM_TOL[dt]
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol))
+        print(f"  expert_matmul {label} ({e},{c},{d})x({e},{d},{f}) {dt}: "
+              f"{'ok' if ok else 'FAIL'} max_abs_err={err:.3e} (tol {tol})")
+        if label in main_shapes:
+            gmm_err = max(gmm_err, err)
+        if not ok:
+            failed.append(f"expert_matmul {label} {(e, c, d, f)} {dt}")
+    if failed:
+        fail("kernel vs plain: " + "; ".join(failed))
+
+    # 11. one MoE layer at full width: kernel against plain
+    layer = moe_mod.moe_init(gen, cfg, torch.bfloat16, dev)
+    x = torch.randn((MOE_B, MOE_PROMPT, D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    _build.reset_launch_counts()
+    out_k, aux_k = moe_mod.moe_apply(layer, cfg, x)
+    torch.cuda.synchronize()
+    n_kernel = _build.LAUNCH_COUNTS["expert_matmul"]
+    _build.reset_launch_counts()
+    with plain_kernels():
+        out_p, aux_p = moe_mod.moe_apply(layer, cfg, x)
+    torch.cuda.synchronize()
+    n_plain = sum(_build.LAUNCH_COUNTS.values())
+    _, _, keep, C_x, _ = moe_mod.route(layer, cfg, x)
+    dropped = float((~keep).float().mean())
+    layer_rms = rel_rms(out_k, out_p)
+    print(f"moe layer {tuple(x.shape)} bf16, E {E} top-{cfg.experts_per_token}"
+          f" C {C_x}: kernel launches {n_kernel} (plain path {n_plain}); "
+          f"output relative RMS {layer_rms:.3e} (limit {MOE_LAYER_REL_RMS}),"
+          f" max |diff| {float((out_k - out_p).abs().max()):.4e}; aux "
+          f"{float(aux_k):.6f} vs {float(aux_p):.6f}; (token, k) pairs "
+          f"dropped {dropped:.6f}")
+    if n_kernel != 3 or n_plain != 0:
+        fail(f"moe layer launches: kernel path {n_kernel} (want 3), plain "
+             f"path {n_plain} (want 0)")
+    if not bool(torch.isfinite(out_k).all()) or \
+            layer_rms > MOE_LAYER_REL_RMS or not bool(aux_k == aux_p):
+        fail(f"moe layer: kernel against plain relative RMS "
+             f"{layer_rms:.3e}, aux {float(aux_k)} vs {float(aux_p)}")
+    del layer, x, out_k, out_p, keep
+
+    # 12. the main path: granite-moe-3b-a800m at full width and depth
+    model = build_model(cfg)
+    want_launches = {"we_rounds": 0, "linear_scan": 0,
+                     "flash_attention": cfg.n_layers,
+                     "expert_matmul": 3 * cfg.n_layers * MOE_STEPS}
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params, n_bytes = describe_params(params)
+    print(f"main path: {MOE_ARCH} {cfg.n_layers} layers, d_model {D}, "
+          f"{E} experts top-{cfg.experts_per_token} d_ff {Ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {n_params:.4e} parameters "
+          f"({n_bytes / 1e9:.3f} GB), drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_B, MOE_PROMPT))).to(dev)
+    s_max = MOE_PROMPT + MOE_STEPS
+
+    def generate():
+        return greedy_generate(model, params, {"tokens": prompt},
+                               model.init_cache(MOE_B, s_max, dev),
+                               MOE_STEPS)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, _ = generate()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCH_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  served {MOE_B} x {MOE_PROMPT} prompt tokens + {MOE_STEPS} new "
+          f"tokens in {first_s:.3f} s (first run); launches {launches} "
+          f"(want {want_launches}); peak memory {peak_gb:.3f} GB")
+    if launches != want_launches:
+        fail(f"the main path's launches {launches} are not {want_launches}")
+    if tuple(toks.shape) != (MOE_B, MOE_STEPS) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+        fail(f"generated tokens of shape {tuple(toks.shape)} outside "
+             f"[0, {cfg.vocab_size})")
+
+    V = cfg.vocab_size
+
+    def schedule():
+        """Prefill, then decode fed the served tokens: (B, steps, V), the
+        logits of the real vocabulary (the padded slots are masked to
+        bf16's lowest value, whose square overflows float32)."""
+        cache = model.init_cache(MOE_B, s_max, dev)
+        logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+        out = [logits[:, -1, :V].float()]
+        for j in range(MOE_STEPS - 1):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, j:j + 1])
+            out.append(logits[:, -1, :V].float())
+        return torch.stack(out, 1)
+
+    served = schedule()
+    replay = float((served.argmax(-1) == toks).float().mean())
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with plain_kernels():
+        plain = schedule()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if any(_build.LAUNCH_COUNTS.values()):
+        fail(f"the plain path launched kernels: {_build.LAUNCH_COUNTS}")
+    step_rms = rel_rms(served, plain, (0, 2))                 # per step
+    agree = float((plain.argmax(-1) == toks).float().mean())
+    print(f"  plain path, same schedule ({plain_s:.2f} s): logits max "
+          f"|diff| {float((served - plain).abs().max()):.4e} (max |logit| "
+          f"{float(plain.abs().max()):.4f}); relative RMS per step: prefill "
+          f"{float(step_rms[0]):.3e}, decode max "
+          f"{float(step_rms[1:].max()):.3e}, mean "
+          f"{float(step_rms[1:].mean()):.3e} (limit {MOE_LOGIT_REL_RMS}); "
+          f"greedy tokens agreeing with the plain path {agree:.4f}; served "
+          f"argmax replayed {replay:.4f}")
+    if not bool(torch.isfinite(served).all()) or \
+            not bool(torch.isfinite(step_rms).all()):
+        fail("served logits or their relative RMS are not finite")
+    if float(step_rms.max()) > MOE_LOGIT_REL_RMS:
+        fail(f"served logits differ from the plain path: relative RMS "
+             f"{float(step_rms.max()):.3e} > {MOE_LOGIT_REL_RMS}")
+    if replay != 1.0:
+        fail(f"replaying the served logits gives back {replay:.4f} of the "
+             f"served tokens")
+    del served, plain
+
+    # 13. times: the kernel at the main path's shapes, then the path
+    times = {}
+    for label, shape in main_shapes.items():
+        buf, w = operands(*shape, torch.bfloat16)
+        k_ms = cuda_ms(torch, lambda: expert_matmul_cuda(buf, w))
+        p_ms = cuda_ms(torch, lambda: expert_matmul_ref(buf, w))
+        l_ms = cuda_ms(torch, lambda: torch.bmm(buf, w))
+        bound, by, flops, nbytes = gmm_bound(*buf.shape, w.shape[2],
+                                             buf.element_size())
+        times[label] = (k_ms, p_ms, l_ms, bound, by)
+        print(f"expert_matmul {label} {tuple(buf.shape)}x{tuple(w.shape)} "
+              f"bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.bmm "
+              f"{l_ms:.4f} ms; bound {bound:.4f} ms by {by} ({flops:.4e} "
+              f"flops, {nbytes} bytes); {flops / k_ms / 1e9:.2f} TFLOP/s")
+    per_generate = sum(
+        n * times[label][0] for label, n in (
+            ("prefill gate/up", 2), ("prefill down", 1),
+            ("decode gate/up", 2 * (MOE_STEPS - 1)),
+            ("decode down", MOE_STEPS - 1))) * cfg.n_layers
+    print(f"expert_matmul per generate: {per_generate:.3f} ms of kernel "
+          f"time (the four shapes' times x their launches)")
+    f_ms, f_plain, f_lib, f_bound, f_by = time_flash(torch, flash_qkv,
+                                                     _window(cfg))
+    del flash_qkv
+
+    prefill_s = gen_s = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": prompt},
+                      model.init_cache(MOE_B, s_max, dev))
+        torch.cuda.synchronize()
+        prefill_s = min(prefill_s, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        gen_s = min(gen_s, time.perf_counter() - t0)
+    decode_ms = (gen_s - prefill_s) / (MOE_STEPS - 1) * 1e3
+    print(f"serve {MOE_ARCH} {MOE_B} x {MOE_PROMPT} + {MOE_STEPS} (warm min "
+          f"of 2): prefill {prefill_s * 1e3:.3f} ms "
+          f"({MOE_B * MOE_PROMPT / prefill_s:.1f} prompt tok/s), decode "
+          f"{decode_ms:.3f} ms per step, generate {gen_s * 1e3:.3f} ms "
+          f"({MOE_B * MOE_STEPS / gen_s:.2f} new tok/s); peak memory "
+          f"{peak_gb:.3f} GB")
+    profile_generate(torch, generate)
+    k_ms, p_ms, l_ms, bound, by = times["prefill gate/up"]
+    return [
+        {"name": "flash_attention", "path": MOE_ARCH, "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+         "launches": launches["flash_attention"], "max_abs_err": flash_err,
+         "ms": f_ms, "plain_ms": f_plain, "bound_ms": f_bound,
+         "bound_by": f_by, "library_ms": f_lib},
+        {"name": "expert_matmul", "path": MOE_ARCH, "route": "cuda",
+         "source": "src/repro_torch/csrc/expert_matmul.cu",
+         "replaces": "src/repro/kernels/moe_gmm/kernel.py:20",
+         "launches": launches["expert_matmul"], "max_abs_err": gmm_err,
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+         "bound_by": by, "library_ms": l_ms}]
 
 
 def main() -> None:
@@ -489,9 +837,10 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.linear_scan import kernel as lk
+    from repro_torch.kernels.moe_gmm import kernel as gk
     t0 = time.perf_counter()
-    built = _build.build_all([wk.LIBRARY, lk.LIBRARY, fk.LIBRARY],
-                             verbose=True)
+    built = _build.build_all([wk.LIBRARY, lk.LIBRARY, fk.LIBRARY,
+                              gk.LIBRARY], verbose=True)
     for lib, build_s in built.values():
         print(f"build: {lib.relative_to(ROOT)} in {build_s:.2f} s")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s wall")
@@ -665,8 +1014,9 @@ def main() -> None:
           f"{ops_ms:.4f} ms; {nbytes} bytes -> {bytes_ms:.5f} ms")
     B0 = rows.shape[0]
     serve_kernels = serve_phases(torch, dev)
+    moe_kernels = moe_phases(torch, dev)
     print(json.dumps({"kernels": [{
-        "name": "we_rounds", "route": "cuda",
+        "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
         "replaces": "src/repro/kernels/we_rounds/kernel.py:65",
         "launches": launches["we_rounds"],
@@ -674,7 +1024,7 @@ def main() -> None:
         "ms": times[B0][0], "plain_ms": times[B0][1],
         "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None}] + serve_kernels}))
+        "library_ms": None}] + serve_kernels + moe_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,7 +37,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SHARED_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 
 LAUNCH_COUNTS: Dict[str, int] = {"we_rounds": 0, "linear_scan": 0,
-                                 "flash_attention": 0}
+                                 "flash_attention": 0, "expert_matmul": 0}
 
 
 def reset_launch_counts() -> None:

@@ -6,7 +6,8 @@ CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.  Decode
 attends one query over the cache in plain torch, as the JAX package does
 in XLA.  Full attention keeps a (B, S_max, kvH, hd) cache; sliding-window
 and local attention keep a ring of the window, the key at position p in
-slot p mod s_buf.  MLA comes with a later slice of the port.
+slot p mod s_buf.  The qwen3 family normalises q and k per head before
+RoPE.  MLA comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Tuple
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
-from .common import Params, apply_rope, dense_init
+from .common import Params, apply_rope, dense_init, rmsnorm
 
 
 def attention_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -37,10 +38,16 @@ def attention_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_init(gen: torch.Generator, cfg, dtype, device: torch.device
              ) -> Params:
     H, Hkv, hd, D = cfg.heads, cfg.kv_heads, cfg.hd, cfg.d_model
-    return {"wq": dense_init(gen, D, H * hd, dtype, device),
-            "wk": dense_init(gen, D, Hkv * hd, dtype, device),
-            "wv": dense_init(gen, D, Hkv * hd, dtype, device),
-            "wo": dense_init(gen, H * hd, D, dtype, device)}
+    p = {"wq": dense_init(gen, D, H * hd, dtype, device),
+         "wk": dense_init(gen, D, Hkv * hd, dtype, device),
+         "wv": dense_init(gen, D, Hkv * hd, dtype, device),
+         "wo": dense_init(gen, H * hd, D, dtype, device)}
+    # per-head RMSNorm of q and k before RoPE, given to the qwen3 family
+    # by name as in src/repro/models/attention.py:148
+    if cfg.name.startswith("qwen3"):
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return p
 
 
 def _project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
@@ -49,6 +56,9 @@ def _project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
     v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

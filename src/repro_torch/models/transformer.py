@@ -1,6 +1,6 @@
 """Decoder-LM assembly for serving: the port of
-``repro.models.transformer`` for the block kinds ``attn`` (dense, not
-MoE) and ``rec`` (RG-LRU).
+``repro.models.transformer`` for the block kinds ``attn`` (with a dense
+or an MoE FFN) and ``rec`` (RG-LRU).
 
 Layers are grouped into repeating "periods" (the block pattern of hybrid
 archs; period 1 for homogeneous stacks).  Parameters keep the JAX
@@ -13,7 +13,7 @@ Caches keep one buffer per layer (the JAX package's ``stacked=False``
 serving layout): ``{"body": {"b<i>": [per-period cache]}, "tail":
 {"t<i>": cache}, "pos": int}``.
 
-MoE, MLA, xLSTM (mlstm / slstm) and the vision frontend come with later
+MLA, xLSTM (mlstm / slstm) and the vision frontend come with later
 slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import recurrent as rec_mod
 from .common import (Params, dense_init, dtype_of, embed_init, rmsnorm,
                      swiglu, swiglu_init)
@@ -50,9 +51,6 @@ def layer_plan(cfg):
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what a later slice ports."""
     later = []
-    if cfg.is_moe:
-        later.append("MoE blocks (the granite-moe serving slice, which "
-                     "wires in the expert_matmul kernel)")
     if cfg.attn_kind == "mla":
         later.append("MLA attention (the minicpm3 slice)")
     if cfg.slstm_every:
@@ -62,7 +60,7 @@ def check_supported(cfg) -> None:
     if later:
         raise NotImplementedError(
             f"{cfg.name}: " + "; ".join(later) + " come with a later slice "
-            "of the port; this slice serves dense GQA and RG-LRU stacks")
+            "of the port; it serves GQA stacks (dense or MoE) and RG-LRU")
 
 
 def _check_mode(mode: str) -> None:
@@ -85,7 +83,9 @@ def _block_init(gen, cfg, kind: str, dtype, device) -> Params:
         return {"ln1": torch.zeros((D,), **zeros),
                 "attn": attn.gqa_init(gen, cfg, dtype, device),
                 "ln2": torch.zeros((D,), **zeros),
-                "mlp": swiglu_init(gen, D, cfg.d_ff, dtype, device)}
+                "mlp": (moe_mod.moe_init(gen, cfg, dtype, device)
+                        if cfg.is_moe else
+                        swiglu_init(gen, D, cfg.d_ff, dtype, device))}
     if kind == "rec":
         return {"ln1": torch.zeros((D,), **zeros),
                 "rec": rec_mod.rglru_init(gen, cfg, dtype, device),
@@ -104,6 +104,15 @@ def _block_cache_init(cfg, kind: str, batch: int, s_max: int, dtype,
     raise ValueError(kind)
 
 
+def _ffn(p: Params, cfg, kind: str, x: torch.Tensor) -> torch.Tensor:
+    """A block's FFN: the MoE for an ``attn`` block of an MoE config (its
+    aux loss discarded at serving, as the JAX ``lm_prefill`` does), else a
+    dense SwiGLU."""
+    if kind == "attn" and cfg.is_moe:
+        return moe_mod.moe_apply(p, cfg, x)[0]
+    return swiglu(p, x)
+
+
 def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
                    cache: Params) -> Tuple[torch.Tensor, Params]:
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
@@ -114,7 +123,8 @@ def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
     else:
         raise ValueError(kind)
     h = h + y
-    return h + swiglu(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)), cache
+    return h + _ffn(p["mlp"], cfg, kind, rmsnorm(h, p["ln2"], cfg.norm_eps)), \
+        cache
 
 
 def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
@@ -128,7 +138,8 @@ def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
     else:
         raise ValueError(kind)
     h = h + y
-    return h + swiglu(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps)), cache
+    return h + _ffn(p["mlp"], cfg, kind, rmsnorm(h, p["ln2"], cfg.norm_eps)), \
+        cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (``we_rounds``, ``linear_scan``,
-``flash_attention``) against their plain PyTorch versions, on the card,
-and the serving slice's kernel path against its CPU path.  Torch only
+``flash_attention``, ``expert_matmul``) against their plain PyTorch
+versions, on the card, and the serving slices' kernel paths against their
+CPU paths.  Torch only
 (the machine with the card has no JAX):
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
@@ -23,6 +24,10 @@ multiply and add per step, in the same order, each rounded (the kernel is
 built with ``--fmad=false``).  ``flash_attention`` agrees to 2e-5 in
 float32 and 2e-2 in bfloat16 (as ``tests/test_kernels.py``): the online
 softmax sums in another order, and bfloat16 output rounds to 8 bits.
+``expert_matmul`` agrees to 1e-5 in float32 and 3e-2 in bfloat16, as
+``tests/test_kernels.py`` holds the Pallas kernel: both accumulate in
+float32, in another order; the inputs are scaled as the model's (w by
+D^-1/2), so outputs are O(1) and 1e-5 is some 80 float32 ulps.
 """
 import numpy as np
 import pytest
@@ -35,6 +40,7 @@ from repro_torch.kernels._build import LAUNCH_COUNTS, reset_launch_counts
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_cuda)
 from repro_torch.kernels.linear_scan import linear_scan_cuda, linear_scan_ref
+from repro_torch.kernels.moe_gmm import expert_matmul_cuda, expert_matmul_ref
 from repro_torch.kernels.we_rounds import kernel, ref
 from repro_torch.models import build_model
 
@@ -178,6 +184,89 @@ def test_new_kernels_reject_what_they_do_not_take(cuda_device):
     a = torch.ones(2, 5, 3, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         linear_scan_cuda(a, a)
+
+
+GMM_CASES = [
+    # (E, C, D, F): ragged edges in every dimension, then granite's
+    # decode, prefill gate/up and prefill down shapes
+    (1, 1, 24, 96), (3, 7, 200, 24), (8, 130, 96, 200), (2, 17, 1, 5),
+    (40, 8, 1536, 512), (40, 2000, 1536, 512), (40, 2000, 512, 1536),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("E,C,D,F", GMM_CASES)
+def test_expert_matmul_kernel_matches_plain_version(cuda_device, dtype, tol,
+                                                    E, C, D, F):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(E * C + D + F)
+    buf = torch.randn((E, C, D), generator=gen, device=cuda_device
+                      ).to(dtype)
+    w = (torch.randn((E, D, F), generator=gen, device=cuda_device)
+         * D ** -0.5).to(dtype)
+    before = LAUNCH_COUNTS["expert_matmul"]
+    got = expert_matmul_cuda(buf, w)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["expert_matmul"] == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (E, C, F)
+    torch.testing.assert_close(got.float(),
+                               expert_matmul_ref(buf, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_expert_matmul_rejects_what_it_does_not_take(cuda_device):
+    buf = torch.ones(2, 8, 16, device=cuda_device)
+    w = torch.ones(2, 16, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        expert_matmul_cuda(buf.cpu(), w.cpu())
+    with pytest.raises(ValueError, match="w must be float32"):
+        expert_matmul_cuda(buf, w.bfloat16())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        expert_matmul_cuda(buf.half(), w.half())
+    with pytest.raises(ValueError, match=r"\(E, C, D\)"):
+        expert_matmul_cuda(buf[0], w)
+    with pytest.raises(ValueError, match="contiguous"):
+        expert_matmul_cuda(buf.transpose(1, 2).contiguous().transpose(1, 2),
+                           w)
+    with pytest.raises(ValueError, match="shape"):
+        expert_matmul_cuda(buf, torch.ones(3, 16, 4, device=cuda_device))
+    with pytest.raises(ValueError, match="shape"):
+        expert_matmul_cuda(buf, torch.ones(2, 15, 4, device=cuda_device))
+    with pytest.raises(ValueError, match="must be on"):
+        expert_matmul_cuda(buf, w.cpu())
+
+
+@pytest.mark.gpu
+def test_moe_serve_path_on_the_card_runs_the_kernels(cuda_device):
+    """The granite-moe smoke model in float32: prefill and two decode
+    steps on the card launch flash attention once per layer at prefill
+    and the expert kernel three times per layer per call, and agree with
+    the same weights on the CPU at rtol and atol 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        smoke_config(get_config("granite-moe-3b-a800m")), dtype="float32")
+    m = build_model(cfg)
+    params = m.init(0, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)))
+    outs = {}
+    for dev, p in (("cpu", params), (cuda_device, _to(params, cuda_device))):
+        reset_launch_counts()
+        cache = m.init_cache(2, 24, dev)
+        logits, cache = m.prefill(p, {"tokens": toks.to(dev)}, cache)
+        steps = [logits]
+        for t in range(2):
+            logits, cache = m.decode_step(p, cache, toks[:, t:t + 1].to(dev))
+            steps.append(logits)
+        outs[str(dev)] = torch.cat(steps, 1).cpu()
+        counts = dict(LAUNCH_COUNTS)
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["expert_matmul"] == 3 * 3 * cfg.n_layers
+    torch.testing.assert_close(outs[str(cuda_device)], outs["cpu"],
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -21,7 +21,8 @@ PKG = Path(repro_torch.__file__).resolve().parent
 
 def test_imports_and_runs_with_jax_and_repro_blocked():
     """In a fresh interpreter where importing ``jax`` or ``repro`` fails,
-    the port imports and runs a small Monte Carlo on the CPU."""
+    the port imports and runs a small Monte Carlo on the CPU, and serves
+    the recurrentgemma and granite-moe smoke configs."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -37,13 +38,14 @@ def test_imports_and_runs_with_jax_and_repro_blocked():
         "from repro_torch.configs import get_config, smoke_config\n"
         "from repro_torch.models import build_model\n"
         "from repro_torch.train.serve import greedy_generate\n"
-        "cfg = dataclasses.replace(smoke_config(get_config("
-        "'recurrentgemma-2b')), dtype='float32')\n"
-        "m = build_model(cfg)\n"
-        "toks, _ = greedy_generate(m, m.init(0, 'cpu'), {'tokens': "
+        "for arch in ('recurrentgemma-2b', 'granite-moe-3b-a800m'):\n"
+        "    cfg = dataclasses.replace(smoke_config(get_config(arch)), "
+        "dtype='float32')\n"
+        "    m = build_model(cfg)\n"
+        "    toks, _ = greedy_generate(m, m.init(0, 'cpu'), {'tokens': "
         "torch.zeros((2, 20), dtype=torch.long)}, m.init_cache(2, 24, "
         "'cpu'), 4)\n"
-        "assert toks.shape == (2, 4)\n"
+        "    assert toks.shape == (2, 4)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok', r.t_comp)\n")

@@ -262,7 +262,6 @@ def test_converter_refuses_a_tree_that_does_not_fit(slice_):
 
 
 @pytest.mark.parametrize("arch,later", [
-    ("granite-moe-3b-a800m", "granite-moe serving slice"),
     ("minicpm3-4b", "minicpm3 slice"),
     ("xlstm-350m", "xLSTM slice"),
     ("internvl2-26b", "internvl2 slice"),
