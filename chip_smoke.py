@@ -9,7 +9,10 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
 2. builds every CUDA kernel of the port from ``src/repro_torch/csrc``
    (``we_rounds``, ``linear_scan``, ``flash_attention``,
    ``expert_matmul``), one ``nvcc`` each, all started together (this is
-   also phase 6's build);
+   also phase 6's build), and prints ptxas's registers and spills of the
+   bf16 tensor-core kernels (flash at d 64 and 256, the expert product's
+   prefill and decode kernels) from the report kept beside each library
+   (a cached build has it too), failing on a spill;
 3. holds the kernel against its plain PyTorch version on the card at the
    Figure 5 shape (16,384 rows x 56 bucketed workers) in four modes --
    known, unknown, drift (an AR(1) rate schedule, R = 48) and the mixed
@@ -27,7 +30,11 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
    ``flash_attention`` at the main path's shape (4, 3000, 10 Q heads, 1
    KV head, d 256, causal, window 2048, bf16) and at small shapes (GQA,
    non-causal, Sq < Sk, ragged 1000, d 64, 128 and 256) in f32 (2e-5)
-   and bf16 (2e-2), as ``tests/test_kernels.py`` holds the Pallas kernel;
+   and bf16 (2e-2), as ``tests/test_kernels.py`` holds the Pallas kernel,
+   plus bf16 edges of the tensor-core tiles (Sq, Sk and windows no
+   multiple of a tile, Sq < Sk and Sq > Sk); each launch must take its
+   design (bf16: tensor cores, f32: FMA units), and two launches at the
+   main shape must be bitwise equal;
    ``linear_scan`` at (4, 3000, 2560) and (3, 1001, 96), bit for bit (the
    same rounded multiply and add in the same order);
 8. serves recurrentgemma-2b at its published width and depth in bf16
@@ -35,11 +42,15 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
    requests x 3000-token prompts x 32 new tokens through
    ``greedy_generate``, with the launch counts zeroed just before and
    read just after (``flash_attention`` once per local-attention layer,
-   ``linear_scan`` once per RG-LRU layer); then the same tokens
+   ``linear_scan`` once per RG-LRU layer; every flash launch on the
+   tensor-core design); then the same tokens
    teacher-forced through the plain path on the card (no kernel may
    launch there), whose logits must agree with the served ones;
-9. times both kernels at the main path's shape against their bounds,
-   their plain versions and (flash) ``scaled_dot_product_attention``,
+9. times both kernels at the main path's shape (device time: CUDA events
+   behind a device sleep) against their bounds, their plain versions and
+   (flash) ``scaled_dot_product_attention``, with TFLOP/s and the ratio
+   to the library call, and flash and sdpa again with the host's launch
+   cost (no device sleep),
    and the whole path: prefill wall, decode ms per token, tokens/s, peak
    memory and the device's busy share of one profiled generate;
 10. holds ``expert_matmul`` against its plain version on the card at the
@@ -47,7 +58,11 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     (40, 2000, 1536) x (40, 1536, 512), prefill down (40, 2000, 512) x
     (40, 512, 1536), and the two decode shapes at C = 8) and at small
     ragged shapes in f32 (1e-5) and bf16 (3e-2), as
-    ``tests/test_kernels.py`` holds the Pallas kernel; and
+    ``tests/test_kernels.py`` holds the Pallas kernel, plus bf16 edges of
+    the tensor-core tiles (C 1, 8, 16, 17, 200; D and F no multiple of a
+    tile; D and F no multiple of 8, which take the FMA design); each
+    launch must take its design, and a second launch at each main shape
+    must be bitwise equal; and
     ``flash_attention`` at granite's prefill shape (4, 2000, 24 Q heads,
     8 KV heads, d 64, causal, no window, bf16) at 2e-2, as in 7;
 11. holds one granite-moe MoE layer at full width, (4, 2000, 1536) bf16,
@@ -58,12 +73,15 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     bf16 (weights drawn on the card from seed 0): 4 requests x
     2000-token prompts x 32 new tokens through ``greedy_generate``, with
     the launch counts zeroed just before and read just after
-    (``flash_attention`` 32, ``expert_matmul`` 3072, the others 0); then
+    (``flash_attention`` 32, ``expert_matmul`` 3072, the others 0; every
+    one of them on the tensor-core designs); then
     the same prefill-then-decode schedule, fed the served tokens,
     through the plain path on the card (no kernel may launch there),
     whose logits must agree with the served ones step by step;
 13. times ``expert_matmul`` at the main path's shapes against its bound,
-    its plain version and ``torch.bmm``, ``flash_attention`` at
+    its plain version and ``torch.bmm`` (TFLOP/s, TB/s, and the ratio to
+    ``torch.bmm``), the kernel and ``torch.bmm`` again with the host's
+    launch cost and as the host's cost a call, ``flash_attention`` at
     granite's shape as in 9, and the whole path: prefill
     wall, decode ms per step, tokens/s, peak memory and the device's
     busy share of one profiled generate.
@@ -78,6 +96,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -121,8 +140,9 @@ GMM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # one MoE layer, kernel against plain: the products' bf16 outputs differ
 # only where the two float32 sums straddle a rounding boundary, by one
 # bf16 ulp (<= 2^-8 relative); if every element did, the relative RMS
-# would be ~3e-3, and the sums agree to ~1e-6, so 1e-3 allows far more
-# such elements than expected
+# would be ~3e-3.  The plain fp32 product and the tensor cores' fp32
+# accumulation agree to well under a bf16 ulp, so 1e-3 allows about a
+# ninth of the elements to straddle
 MOE_LAYER_REL_RMS = 1e-3
 # served logits against the plain path on the same schedule, both bf16:
 # bf16 roundings at other places in flash attention and the expert
@@ -131,6 +151,26 @@ MOE_LAYER_REL_RMS = 1e-3
 # near-tied top-8 routing choices, each moving ~7% of the router weight
 # of a token to another expert; 1e-1 bounds both
 MOE_LOGIT_REL_RMS = 1e-1
+SLEEP_CYCLES = 2_000_000        # ~1 ms of device time at the H100's clock
+
+
+def ptxas_usage(report: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from the report of ``nvcc -Xptxas -v``."""
+    usage, fn, spill = {}, None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)),) + spill
+    return usage
 
 
 def fail(msg: str) -> None:
@@ -176,12 +216,19 @@ def ar1_schedule(rows: np.ndarray, R: int, seed: int) -> np.ndarray:
     return (rows[:, None, :] * np.exp(x)).astype(np.float32)
 
 
-def cuda_ms(torch, fn, reps: int = 3) -> float:
-    """Warm minimum over ``reps`` runs, timed with CUDA events."""
+def cuda_ms(torch, fn, reps: int = 3, sleep: bool = True) -> float:
+    """Warm minimum over ``reps`` runs, timed with CUDA events.  With
+    ``sleep``, a device sleep of ~1 ms before each run keeps the card busy
+    while the host enqueues the run, so the events time the device's
+    work, not the host's launch cost (which would dominate a 0.03 ms
+    kernel); without it the events start on an idle card and the time
+    includes the host's launch cost."""
     fn()
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(reps):
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -190,6 +237,22 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def host_ms(torch, fn, calls: int = 100, reps: int = 3) -> float:
+    """The host's cost of one call: warm minimum over ``reps`` of the
+    host clock across ``calls`` calls enqueued back to back, divided by
+    ``calls`` (the card runs them behind; fewer than its queue holds)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / calls * 1e3
 
 
 def compare(torch, got, want):
@@ -290,35 +353,46 @@ def check_flash(torch, draw, case):
     case (B, Sq, Sk, Hq, Hkv, d, causal, window, dtype name) of inputs
     from ``draw``, at ``FLASH_TOL``.  Returns (ok, max abs error, label,
     (q, k, v))."""
+    from repro_torch.kernels._build import DESIGN_COUNTS
     from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention_cuda)
+                                                     flash_attention_cuda,
+                                                     flash_attention_design)
     B, Sq, Sk, Hq, Hkv, d, causal, window, dt = case
     dtype = getattr(torch, dt)
     q = draw((B, Sq, Hq, d), dtype)
     k, v = draw((B, Sk, Hkv, d), dtype), draw((B, Sk, Hkv, d), dtype)
+    design = flash_attention_design(dtype, d)
+    before = DESIGN_COUNTS[("flash_attention", design)]
     got = flash_attention_cuda(q, k, v, causal, window)
+    took = DESIGN_COUNTS[("flash_attention", design)] - before
     want = attention_ref(q, k, v, causal, window)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = FLASH_TOL[dt]
     ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
+    ok = ok and took == 1
     label = f"({B},{Sq},{Sk},{Hq},{Hkv},{d}) causal={causal} " \
         f"window={window} {dt}"
     print(f"  flash_attention {label}: {'ok' if ok else 'FAIL'} "
-          f"max_abs_err={err:.3e} (tol {tol})")
+          f"max_abs_err={err:.3e} (tol {tol}), design {design} "
+          f"({took} launch)")
     return ok, err, label, (q, k, v)
 
 
 def time_flash(torch, qkv, window: int):
     """Causal flash attention on one main path's q, k, v: the kernel, its
     plain version and ``scaled_dot_product_attention`` (an explicit
-    window mask, else ``is_causal``; ``enable_gqa``), warm min of 3, and
-    the bound.  Returns (ms, plain ms, library ms, bound ms, bound_by)."""
+    window mask, else ``is_causal``; ``enable_gqa``), warm min of 3 of
+    device time, and the bound; the kernel and sdpa also with the host's
+    launch cost.  Returns (ms, plain ms, library ms, bound ms,
+    bound_by), all device times."""
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda)
     q, k, v = qkv
-    f_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, True,
-                                                       window))
+    def kernel():
+        return flash_attention_cuda(q, k, v, True, window)
+
+    f_ms = cuda_ms(torch, kernel)
     f_plain = cuda_ms(torch, lambda: attention_ref(q, k, v, True, window))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if window:
@@ -336,13 +410,19 @@ def time_flash(torch, qkv, window: int):
                      - attention_ref(q, k, v, True, window).float()
                      ).abs().max())
     f_lib = cuda_ms(torch, sdpa)
+    f_launch, lib_launch = (cuda_ms(torch, fn, sleep=False)
+                            for fn in (kernel, sdpa))
     f_bound, f_by, f_flops, f_bytes = flash_bound(q, k, window)
     print(f"flash_attention at {tuple(q.shape)} kv {tuple(k.shape)} "
           f"{str(q.dtype).replace('torch.', '')}, window {window}: kernel "
-          f"{f_ms:.4f} ms, plain {f_plain:.4f} ms, sdpa "
+          f"{f_ms:.4f} ms ({f_flops / f_ms / 1e9:.1f} TFLOP/s, "
+          f"{f_bound / f_ms:.3f} of the bound), plain {f_plain:.4f} ms, sdpa "
           f"({'explicit mask' if window else 'is_causal'}, enable_gqa; max "
-          f"|diff| {lib_err:.3e}) {f_lib:.4f} ms; bound {f_bound:.4f} ms by "
-          f"{f_by} ({f_flops:.4e} flops, {f_bytes} bytes)")
+          f"|diff| {lib_err:.3e}) {f_lib:.4f} ms; kernel / sdpa "
+          f"{f_ms / f_lib:.3f}; bound {f_bound:.4f} ms by "
+          f"{f_by} ({f_flops:.4e} flops, {f_bytes} bytes); with the "
+          f"host's launch cost (no device sleep): kernel {f_launch:.4f} ms, "
+          f"sdpa {lib_launch:.4f} ms")
     return f_ms, f_plain, f_lib, f_bound, f_by
 
 
@@ -384,6 +464,7 @@ def serve_phases(torch, dev):
     """Phases 7-9; returns the two serving kernels' JSON entries."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.linear_scan import (linear_scan_cuda,
                                                  linear_scan_ref)
     from repro_torch.models import build_model
@@ -414,6 +495,17 @@ def serve_phases(torch, dev):
             (1, 96, 300, 4, 1, 64, True, 0),         # Sq < Sk
             (1, 1000, 1000, 4, 2, 128, True, 300),   # ragged, window
             (1, 1000, 1000, 10, 1, 256, True, 512),  # MQA, d 256
+        ]] + [
+        # bf16 edges of the tensor-core design's 64-row query tiles and
+        # 64-key (32 at d 256) key tiles: Sq and Sk no multiple of either,
+        # windows no multiple of a key tile, Sq < Sk and Sq > Sk
+        (B, Sq, Sk, Hq, Hkv, d, causal, window, "bfloat16")
+        for (B, Sq, Sk, Hq, Hkv, d, causal, window) in [
+            (1, 77, 190, 4, 2, 64, True, 50),        # Sq < Sk, window 50
+            (2, 190, 77, 2, 1, 32, True, 0),         # Sq > Sk: rows see none
+            (1, 300, 333, 10, 1, 256, True, 100),    # d 256, window 100
+            (1, 257, 257, 3, 3, 16, False, 0),       # one row past a tile
+            (1, 129, 200, 2, 2, 128, False, 70),     # non-causal window 70
         ]]
     flash_err = 0.0
     main_qkv = None
@@ -423,6 +515,14 @@ def serve_phases(torch, dev):
             flash_err, main_qkv = err, qkv
         if not ok:
             failed.append(f"flash_attention {label}")
+    q, k, v = main_qkv
+    again = [flash_attention_cuda(q, k, v, True, W) for _ in range(2)]
+    same = bool(torch.equal(again[0], again[1]))
+    print(f"  flash_attention at the main shape, two launches: "
+          f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        failed.append("flash_attention is not deterministic")
+    del again, q, k, v
     scan_err = 0.0
     main_ab = None
     for shape in [(SERVE_B, S, cfg.lru_width), (3, 1001, 96)]:
@@ -472,13 +572,18 @@ def serve_phases(torch, dev):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {n: _build.LAUNCH_COUNTS[n] for n in want_launches}
+    designs = dict(_build.DESIGN_COUNTS)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"  served {SERVE_B} x {S} prompt tokens + {SERVE_STEPS} new "
           f"tokens in {first_s:.3f} s (first run); launches {launches} "
-          f"(want {want_launches}); peak memory {peak_gb:.3f} GB")
+          f"(want {want_launches}); designs {designs}; peak memory "
+          f"{peak_gb:.3f} GB")
     if launches != want_launches:
         fail(f"the main path's launches {launches} are not "
              f"{want_launches}")
+    if designs[("flash_attention", "tc")] != want_launches["flash_attention"]:
+        fail(f"the main path's bf16 flash launches did not all take the "
+             f"tensor-core design: {designs}")
     if tuple(toks.shape) != (SERVE_B, SERVE_STEPS) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         fail(f"generated tokens of shape {tuple(toks.shape)} outside "
@@ -574,6 +679,7 @@ def moe_phases(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.moe_gmm import (expert_matmul_cuda,
+                                             expert_matmul_design,
                                              expert_matmul_ref)
     from repro_torch.models import build_model
     from repro_torch.models import moe as moe_mod
@@ -610,22 +716,41 @@ def moe_phases(torch, dev):
              for label, shape in main_shapes.items()] + [
         ("ragged", shape, dt) for dt in ("float32", "bfloat16")
         for shape in [(1, 1, 24, 96), (3, 7, 200, 24), (8, 130, 96, 200),
-                      (5, 130, 200, 200), (8, 7, 24, 24), (2, 1, 96, 200)]]
+                      (5, 130, 200, 200), (8, 7, 24, 24), (2, 1, 96, 200)]
+    ] + [
+        # bf16 edges of the tensor-core design: C of 1, 8, 16 (decode
+        # tiles) and 17, 200 (no multiple of the 128-row tile); D of 40,
+        # 72, 200, 1000 (no multiple of the 64-deep slab); F of 24, 136,
+        # 264, 520 (no multiple of the 64- or 128-column tile); and D, F
+        # no multiple of 8, which takes the FMA design
+        ("edge", shape, "bfloat16")
+        for shape in [(4, 1, 40, 72), (4, 8, 200, 136), (4, 16, 72, 24),
+                      (4, 17, 200, 136), (3, 200, 1000, 264),
+                      (2, 130, 72, 520), (2, 17, 1, 5)]]
     failed = [] if flash_ok else [f"flash_attention {flash_label}"]
     gmm_err = 0.0
     for label, (e, c, d, f), dt in cases:
         buf, w = operands(e, c, d, f, getattr(torch, dt))
+        design = expert_matmul_design(buf.dtype, d, f)
+        before = _build.DESIGN_COUNTS[("expert_matmul", design)]
         got = expert_matmul_cuda(buf, w)
+        took = _build.DESIGN_COUNTS[("expert_matmul", design)] - before
         want = expert_matmul_ref(buf, w)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         tol = GMM_TOL[dt]
         ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol))
-        print(f"  expert_matmul {label} ({e},{c},{d})x({e},{d},{f}) {dt}: "
-              f"{'ok' if ok else 'FAIL'} max_abs_err={err:.3e} (tol {tol})")
+                                 atol=tol)) and took == 1
+        same = ""
         if label in main_shapes:
             gmm_err = max(gmm_err, err)
+            again = expert_matmul_cuda(buf, w)
+            ok = ok and bool(torch.equal(got, again))
+            same = (", a second launch bitwise equal"
+                    if torch.equal(got, again) else ", a second launch DIFFERS")
+        print(f"  expert_matmul {label} ({e},{c},{d})x({e},{d},{f}) {dt}: "
+              f"{'ok' if ok else 'FAIL'} max_abs_err={err:.3e} (tol {tol}), "
+              f"design {design} ({took} launch){same}")
         if not ok:
             failed.append(f"expert_matmul {label} {(e, c, d, f)} {dt}")
     if failed:
@@ -692,12 +817,19 @@ def moe_phases(torch, dev):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCH_COUNTS)
+    designs = dict(_build.DESIGN_COUNTS)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"  served {MOE_B} x {MOE_PROMPT} prompt tokens + {MOE_STEPS} new "
           f"tokens in {first_s:.3f} s (first run); launches {launches} "
-          f"(want {want_launches}); peak memory {peak_gb:.3f} GB")
+          f"(want {want_launches}); designs {designs}; peak memory "
+          f"{peak_gb:.3f} GB")
     if launches != want_launches:
         fail(f"the main path's launches {launches} are not {want_launches}")
+    if designs[("flash_attention", "tc")] != want_launches["flash_attention"] \
+            or designs[("expert_matmul", "tc")] \
+            != want_launches["expert_matmul"]:
+        fail(f"the main path's bf16 launches did not all take the "
+             f"tensor-core designs: {designs}")
     if tuple(toks.shape) != (MOE_B, MOE_STEPS) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         fail(f"generated tokens of shape {tuple(toks.shape)} outside "
@@ -753,16 +885,30 @@ def moe_phases(torch, dev):
     times = {}
     for label, shape in main_shapes.items():
         buf, w = operands(*shape, torch.bfloat16)
-        k_ms = cuda_ms(torch, lambda: expert_matmul_cuda(buf, w))
+        def kernel():
+            return expert_matmul_cuda(buf, w)
+
+        def library():
+            return torch.bmm(buf, w)
+
+        k_ms = cuda_ms(torch, kernel)
         p_ms = cuda_ms(torch, lambda: expert_matmul_ref(buf, w))
-        l_ms = cuda_ms(torch, lambda: torch.bmm(buf, w))
+        l_ms = cuda_ms(torch, library)
+        k_launch, l_launch = (cuda_ms(torch, fn, sleep=False)
+                              for fn in (kernel, library))
+        k_host, l_host = (host_ms(torch, fn) for fn in (kernel, library))
         bound, by, flops, nbytes = gmm_bound(*buf.shape, w.shape[2],
                                              buf.element_size())
         times[label] = (k_ms, p_ms, l_ms, bound, by)
         print(f"expert_matmul {label} {tuple(buf.shape)}x{tuple(w.shape)} "
-              f"bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.bmm "
-              f"{l_ms:.4f} ms; bound {bound:.4f} ms by {by} ({flops:.4e} "
-              f"flops, {nbytes} bytes); {flops / k_ms / 1e9:.2f} TFLOP/s")
+              f"bf16: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.2f} "
+              f"TFLOP/s, {nbytes / k_ms / 1e9:.3f} TB/s, {bound / k_ms:.3f} "
+              f"of the bound), plain {p_ms:.4f} ms, torch.bmm {l_ms:.4f} ms; "
+              f"kernel / torch.bmm {k_ms / l_ms:.3f}; bound {bound:.4f} ms by "
+              f"{by} ({flops:.4e} flops, {nbytes} bytes); with the "
+              f"host's launch cost (no device sleep): kernel {k_launch:.4f} "
+              f"ms, torch.bmm {l_launch:.4f} ms; host cost a call: kernel "
+              f"{k_host:.4f} ms, torch.bmm {l_host:.4f} ms")
     per_generate = sum(
         n * times[label][0] for label, n in (
             ("prefill gate/up", 2), ("prefill down", 1),
@@ -840,10 +986,28 @@ def main() -> None:
     from repro_torch.kernels.moe_gmm import kernel as gk
     t0 = time.perf_counter()
     built = _build.build_all([wk.LIBRARY, lk.LIBRARY, fk.LIBRARY,
-                              gk.LIBRARY], verbose=True)
+                              gk.LIBRARY])
     for lib, build_s in built.values():
         print(f"build: {lib.relative_to(ROOT)} in {build_s:.2f} s")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s wall")
+    # the bf16 tensor-core kernels: registers, and no spill
+    for label, lib, part in [
+            ("flash_attention tc d=64", fk.LIBRARY, "flash_tc_kernelILi64E"),
+            ("flash_attention tc d=256", fk.LIBRARY,
+             "flash_tc_kernelILi256E"),
+            ("expert_matmul tc prefill (wgmma)", gk.LIBRARY,
+             "expert_matmul_wgmma_kernel"),
+            ("expert_matmul tc decode (mma.sync)", gk.LIBRARY,
+             "expert_matmul_tc_kernel")]:
+        found = [u for fn, u in ptxas_usage(lib.report()).items()
+                 if part in fn]
+        if not found:
+            fail(f"no ptxas report for {label} in {lib.name}'s build")
+        for regs, st, ld in found:
+            print(f"ptxas: {label}: {regs} registers, {st} bytes spill "
+                  f"stores, {ld} bytes spill loads")
+            if st or ld:
+                fail(f"{label} spills registers")
 
     # 3. kernel against its plain version at the Figure 5 shape
     points, specs = fig5_specs(HetSpec)

@@ -10,10 +10,15 @@ library is loaded with ``ctypes``; the wrapper passes pointers as
 ``cudaGetLastError()``, which ``check_launch`` turns into an exception.
 
 Nothing here runs when the module is imported.  ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.
+``nvcc`` per source at once and waits for all of them.  Every build runs
+``ptxas`` verbosely and keeps its report (registers and spills of each
+kernel) beside the library as ``<name>-<hash>.log``, so a cached build
+still has it.
 
 ``LAUNCH_COUNTS`` holds each kernel's launches, counted by its wrapper
-where the launch happens and nowhere else.
+where the launch happens and nowhere else; ``DESIGN_COUNTS`` splits the
+launches of the kernels that have more than one design ("tc" on the
+tensor cores, "fma" on the FMA units) by the design each took.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,11 +43,16 @@ SHARED_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 
 LAUNCH_COUNTS: Dict[str, int] = {"we_rounds": 0, "linear_scan": 0,
                                  "flash_attention": 0, "expert_matmul": 0}
+DESIGN_COUNTS: Dict[Tuple[str, str], int] = {
+    (name, design): 0 for name in ("flash_attention", "expert_matmul")
+    for design in ("tc", "fma")}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+    for key in DESIGN_COUNTS:
+        DESIGN_COUNTS[key] = 0
 
 
 def nvcc() -> str:
@@ -74,20 +84,29 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        """Where the built library for the current source and flags lives."""
-        h = hashlib.sha256(self.source.read_bytes()
+        """Where the built library for the current source, the shared
+        headers and the flags lives."""
+        content = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        h = hashlib.sha256(content
                            + " ".join(self.flags).encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.name}-{h}.so"
 
-    def _command(self, out: Path, verbose: bool) -> List[str]:
-        return [nvcc(), *self.flags, *(["-Xptxas", "-v"] if verbose else []),
-                "-o", str(out), str(self.source)]
+    def report(self) -> str:
+        """nvcc's output of the build of ``library_path()`` (with
+        ``-Xptxas -v``: each kernel's registers and spills); "" if that
+        library is not built."""
+        log = self.library_path().with_suffix(".log")
+        return log.read_text() if log.exists() else ""
 
-    def build(self, verbose: bool = False) -> Tuple[Path, float]:
+    def _command(self, out: Path) -> List[str]:
+        return [nvcc(), *self.flags, "-Xptxas", "-v", "-o", str(out),
+                str(self.source)]
+
+    def build(self) -> Tuple[Path, float]:
         """Compile the library if it is not built yet.  Returns its path
-        and the seconds spent compiling (0.0 when cached).  ``verbose``
-        adds ``-Xptxas -v`` and prints nvcc's report."""
-        return build_all([self], verbose)[self.name]
+        and the seconds spent compiling (0.0 when cached)."""
+        return build_all([self])[self.name]
 
     def function(self) -> Callable[..., int]:
         """The loaded C entry point (building the library if needed)."""
@@ -101,8 +120,7 @@ class CudaLibrary:
         return getattr(self._lib, self.entry)
 
 
-def build_all(libs: Iterable[CudaLibrary], verbose: bool = False
-              ) -> Dict[str, Tuple[Path, float]]:
+def build_all(libs: Iterable[CudaLibrary]) -> Dict[str, Tuple[Path, float]]:
     """Build every library not built yet, one ``nvcc`` each, all started
     together.  Returns ``{name: (path, seconds compiling)}``; raises with
     nvcc's output if any build fails."""
@@ -118,7 +136,7 @@ def build_all(libs: Iterable[CudaLibrary], verbose: bool = False
         # nvcc's report goes to a file: a pipe left unread while another
         # build is awaited could fill and stall the compiler
         log = open(tmp.with_suffix(".log"), "w+")
-        proc = subprocess.Popen(lib._command(tmp, verbose), stdout=log,
+        proc = subprocess.Popen(lib._command(tmp), stdout=log,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((lib, path, tmp, proc, log, time.perf_counter()))
     errors = []
@@ -128,26 +146,29 @@ def build_all(libs: Iterable[CudaLibrary], verbose: bool = False
             seconds = time.perf_counter() - t0
             log.seek(0)
             report = log.read()
-        os.unlink(log.name)
         if proc.returncode != 0:
+            os.unlink(log.name)
             errors.append(f"nvcc failed on {lib.source.name} "
                           f"({proc.returncode}):\n{report}")
             continue
-        if verbose:
-            print(report, end="")
-        os.replace(tmp, path)       # atomic: concurrent builds never clash
+        # atomic: concurrent builds never clash; the report goes first, so
+        # a built library always has one beside it
+        os.replace(log.name, path.with_suffix(".log"))
+        os.replace(tmp, path)
         done[lib.name] = (path, seconds)
     if errors:
         raise RuntimeError("\n".join(errors))
     return done
 
 
-def check_launch(name: str, rc: int) -> None:
+def check_launch(name: str, rc: int, design: Optional[str] = None) -> None:
     """Raise if the C entry point reported a CUDA error; else count the
-    launch."""
+    launch (and, for a kernel with designs, the design it took)."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCH_COUNTS[name] += 1
+    if design is not None:
+        DESIGN_COUNTS[(name, design)] += 1
 
 
 def stream_of(t: torch.Tensor) -> int:

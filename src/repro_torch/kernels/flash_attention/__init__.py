@@ -1,6 +1,7 @@
 """GQA flash attention forward (causal, sliding window)."""
-from .kernel import flash_attention_cuda
+from .kernel import flash_attention_cuda, flash_attention_design
 from .ops import flash_attention
 from .ref import attention_ref
 
-__all__ = ["attention_ref", "flash_attention", "flash_attention_cuda"]
+__all__ = ["attention_ref", "flash_attention", "flash_attention_cuda",
+           "flash_attention_design"]

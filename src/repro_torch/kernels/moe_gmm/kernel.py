@@ -6,10 +6,12 @@ serving shapes and how its design meets that).  It is built and loaded by
 ``kernels/_build.py`` at first use; nothing here runs when the module is
 imported.
 
-``expert_matmul_cuda`` takes CUDA tensors only: it checks them, allocates
-the output with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch was refused, and counts the launch in
-``LAUNCH_COUNTS["expert_matmul"]``.
+``expert_matmul_cuda`` takes CUDA tensors only: it checks them, picks the
+kernel's design with ``expert_matmul_design``, allocates the output with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch was refused, and counts the launch in
+``LAUNCH_COUNTS["expert_matmul"]`` and its design in
+``DESIGN_COUNTS[("expert_matmul", design)]``.
 """
 from __future__ import annotations
 
@@ -22,10 +24,22 @@ from .._build import (ARCH_FLAGS, SHARED_FLAGS, CudaLibrary, check_launch,
 
 NVCC_FLAGS = (*ARCH_FLAGS, *SHARED_FLAGS)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DESIGNS = {"fma": 0, "tc": 1}
 MAX_GRID = 65535            # C / 16 row tiles and E experts on grid y, z
 LIBRARY = CudaLibrary("expert_matmul", NVCC_FLAGS, "expert_matmul_launch",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
+
+
+def expert_matmul_design(dtype: torch.dtype, D: int, F: int,
+                         aligned: bool = True) -> str:
+    """The design a launch takes: "tc" (tensor cores, cp.async ring) for
+    bfloat16 whose rows start on 16-byte boundaries (D and F multiples of
+    8, ``aligned`` pointers); else "fma" (the FMA units), which takes any
+    shape, and float32 at full precision."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 and aligned:
+        return "tc"
+    return "fma"
 
 
 def expert_matmul_cuda(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -49,8 +63,10 @@ def expert_matmul_cuda(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if max(D, F) >= 2 ** 31:
         raise ValueError("expert_matmul_cuda takes D and F below 2^31")
     out = torch.empty((E, C, F), dtype=buf.dtype, device=buf.device)
+    design = expert_matmul_design(buf.dtype, D, F, all(
+        t.data_ptr() % 16 == 0 for t in (buf, w, out)))
     rc = LIBRARY.function()(buf.data_ptr(), w.data_ptr(), out.data_ptr(), E,
-                            C, D, F, DTYPES[buf.dtype],
+                            C, D, F, DTYPES[buf.dtype], DESIGNS[design],
                             buf.device.index or 0, stream_of(buf))
-    check_launch("expert_matmul", rc)
+    check_launch("expert_matmul", rc, design)
     return out

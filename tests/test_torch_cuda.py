@@ -28,6 +28,12 @@ softmax sums in another order, and bfloat16 output rounds to 8 bits.
 ``tests/test_kernels.py`` holds the Pallas kernel: both accumulate in
 float32, in another order; the inputs are scaled as the model's (w by
 D^-1/2), so outputs are O(1) and 1e-5 is some 80 float32 ulps.
+
+Both kernels have two designs, picked by the wrapper before it launches:
+bfloat16 takes the tensor cores ("tc"), float32 (and bfloat16 expert
+products whose D or F is no multiple of 8) the FMA units ("fma");
+``DESIGN_COUNTS`` shows which.  The tensor-core designs sum in one fixed
+order, so two launches on the same inputs give the same bits.
 """
 import numpy as np
 import pytest
@@ -36,11 +42,15 @@ import torch
 import dataclasses
 
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.kernels._build import LAUNCH_COUNTS, reset_launch_counts
+from repro_torch.kernels._build import (DESIGN_COUNTS, LAUNCH_COUNTS,
+                                        reset_launch_counts)
 from repro_torch.kernels.flash_attention import (attention_ref,
-                                                 flash_attention_cuda)
+                                                 flash_attention_cuda,
+                                                 flash_attention_design)
 from repro_torch.kernels.linear_scan import linear_scan_cuda, linear_scan_ref
-from repro_torch.kernels.moe_gmm import expert_matmul_cuda, expert_matmul_ref
+from repro_torch.kernels.moe_gmm import (expert_matmul_cuda,
+                                         expert_matmul_design,
+                                         expert_matmul_ref)
 from repro_torch.kernels.we_rounds import kernel, ref
 from repro_torch.models import build_model
 
@@ -169,6 +179,40 @@ def test_flash_kernel_matches_plain_version(cuda_device, dtype, tol, B, Sq,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# bf16 edges of the tensor-core design's tiles (64 query rows, 64 keys, 32
+# at d 256): Sq and Sk no multiple of a tile, windows no multiple of a
+# key tile, Sq < Sk and Sq > Sk (rows that see no key give 0)
+FLASH_EDGES = [
+    (1, 77, 190, 4, 2, 64, True, 50),
+    (2, 190, 77, 2, 1, 32, True, 0),
+    (1, 300, 333, 10, 1, 256, True, 100),
+    (1, 257, 257, 3, 3, 16, False, 0),
+    (1, 129, 200, 2, 2, 128, False, 70),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,d,causal,window", FLASH_EDGES)
+def test_flash_tensor_core_edges_match_plain_and_repeat_bitwise(
+        cuda_device, B, Sq, Sk, Hq, Hkv, d, causal, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq * Sk + d)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, k, v = draw(B, Sq, Hq, d), draw(B, Sk, Hkv, d), draw(B, Sk, Hkv, d)
+    before = DESIGN_COUNTS[("flash_attention", "tc")]
+    got = flash_attention_cuda(q, k, v, causal, window)
+    again = flash_attention_cuda(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert DESIGN_COUNTS[("flash_attention", "tc")] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v, causal, window).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
 @pytest.mark.gpu
 def test_new_kernels_reject_what_they_do_not_take(cuda_device):
     x = torch.ones(1, 8, 2, 48, device=cuda_device)
@@ -181,6 +225,10 @@ def test_new_kernels_reject_what_they_do_not_take(cuda_device):
     kv = torch.ones(1, 8, 2, 16, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_attention_cuda(q, kv, kv)
+    m = torch.ones(257, device=cuda_device, dtype=torch.bfloat16)[1:]
+    m = m.view(1, 8, 2, 16)                  # 2 bytes off a 16-byte line
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(m, m, m)
     a = torch.ones(2, 5, 3, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         linear_scan_cuda(a, a)
@@ -213,6 +261,64 @@ def test_expert_matmul_kernel_matches_plain_version(cuda_device, dtype, tol,
     assert got.dtype == dtype and tuple(got.shape) == (E, C, F)
     torch.testing.assert_close(got.float(),
                                expert_matmul_ref(buf, w).float(),
+                               rtol=tol, atol=tol)
+
+
+# bf16 edges of the tensor-core design: C of 1, 8, 16 (16-row decode
+# tiles) and 17, 200 (no multiple of the 128-row prefill tile); D no
+# multiple of the 64-deep slab; F no multiple of the 64- or 128-column tile
+GMM_EDGES = [(4, 1, 40, 72), (4, 8, 200, 136), (4, 16, 72, 24),
+             (4, 17, 200, 136), (3, 200, 1000, 264), (2, 130, 72, 520)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,D,F", GMM_EDGES)
+def test_expert_matmul_tensor_core_edges_match_plain_and_repeat_bitwise(
+        cuda_device, E, C, D, F):
+    gen = torch.Generator(device=cuda_device).manual_seed(E * C + D + F)
+    buf = torch.randn((E, C, D), generator=gen, device=cuda_device
+                      ).to(torch.bfloat16)
+    w = (torch.randn((E, D, F), generator=gen, device=cuda_device)
+         * D ** -0.5).to(torch.bfloat16)
+    before = DESIGN_COUNTS[("expert_matmul", "tc")]
+    got = expert_matmul_cuda(buf, w)
+    again = expert_matmul_cuda(buf, w)
+    torch.cuda.synchronize()
+    assert DESIGN_COUNTS[("expert_matmul", "tc")] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), expert_matmul_ref(buf, w).float(),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,D,F,design", [
+    (torch.bfloat16, 96, 200, "tc"), (torch.float32, 96, 200, "fma"),
+    (torch.bfloat16, 1, 5, "fma"), (torch.bfloat16, 100, 16, "fma"),
+    (torch.bfloat16, 96, 20, "fma")])
+def test_each_launch_counts_the_design_it_took(cuda_device, dtype, D, F,
+                                               design):
+    """bf16 with D and F multiples of 8 takes the tensor cores; float32,
+    and bf16 with D or F no multiple of 8, the FMA units; flash follows
+    the dtype alone.  Both agree with the plain versions either way."""
+    assert expert_matmul_design(dtype, D, F) == design
+    buf = torch.randn((2, 20, D), device=cuda_device).to(dtype)
+    w = (torch.randn((2, D, F), device=cuda_device) * D ** -0.5).to(dtype)
+    reset_launch_counts()
+    got = expert_matmul_cuda(buf, w)
+    q = torch.randn((1, 70, 2, 64), device=cuda_device).to(dtype)
+    o = flash_attention_cuda(q, q, q)
+    torch.cuda.synchronize()
+    flash = flash_attention_design(dtype, 64)
+    assert flash == ("tc" if dtype == torch.bfloat16 else "fma")
+    assert {k: n for k, n in DESIGN_COUNTS.items() if n} == {
+        ("expert_matmul", design): 1, ("flash_attention", flash): 1}
+    assert LAUNCH_COUNTS["expert_matmul"] == LAUNCH_COUNTS[
+        "flash_attention"] == 1
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), expert_matmul_ref(buf, w).float(),
+                               rtol=tol, atol=tol)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), attention_ref(q, q, q).float(),
                                rtol=tol, atol=tol)
 
 
