@@ -11,20 +11,25 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
    ``expert_matmul``), one ``nvcc`` each, all started together (this is
    also phase 6's build), and prints ptxas's registers and spills of the
    bf16 tensor-core kernels (flash at d 64 and 256, the expert product's
-   prefill and decode kernels) from the report kept beside each library
-   (a cached build has it too), failing on a spill;
+   prefill and decode kernels), of both ``linear_scan`` designs (ring and
+   direct) and of ``we_rounds``'s main-path instance (K <= 64) from the
+   report kept beside each library (a cached build has it too), failing
+   on a spill;
 3. holds the kernel against its plain PyTorch version on the card at the
    Figure 5 shape (16,384 rows x 56 bucketed workers) in four modes --
    known, unknown, drift (an AR(1) rate schedule, R = 48) and the mixed
    panel: >= 99% of rows with equal iterations, t_comp within rtol 1e-4
    and n_comm within rtol 1e-3 on those rows, batch means within 6 SE;
+   and, since the plain version sums rows in the kernel's order, bit for
+   bit;
 4. runs the main path at paper scale -- the Figure 5 grid (mu in {10, 20,
    50, 100} x sigma^2 in {0, mu^2/6}, K = 50, N = 1e6, 1000 trials) with
    the six schemes through ``mc_grid_panel(..., backend="cuda")`` -- with
    the launch counts zeroed just before and read just after, and checks
    the paper's Figure 5 claims;
 5. times the kernel and its plain version (warm minimum of 3) at 16,384
-   and 131,072 rows, and the whole panel's wall time;
+   and 131,072 rows, with each size's bound (from that run's rounds) and
+   the kernel's share of it, and the whole panel's wall time;
 6. (the build of ``linear_scan`` and ``flash_attention``, done in 2);
 7. holds each serving kernel against its plain version on the card:
    ``flash_attention`` at the main path's shape (4, 3000, 10 Q heads, 1
@@ -35,22 +40,28 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
    multiple of a tile, Sq < Sk and Sq > Sk); each launch must take its
    design (bf16: tensor cores, f32: FMA units), and two launches at the
    main shape must be bitwise equal;
-   ``linear_scan`` at (4, 3000, 2560) and (3, 1001, 96), bit for bit (the
-   same rounded multiply and add in the same order);
+   ``linear_scan`` bit for bit (the same rounded multiply and add in the
+   same order) in both designs: the ring at (4, 3000, 2560), (1, 3000,
+   2560), (3, 1001, 96) and (2, 65, 100), the direct design at (3, 1001,
+   97) and at the main shape on pointers off a 16-byte boundary; each
+   launch must take the design ``linear_scan_design`` names;
 8. serves recurrentgemma-2b at its published width and depth in bf16
    (weights drawn on the card from a seeded ``torch.Generator``): 4
    requests x 3000-token prompts x 32 new tokens through
    ``greedy_generate``, with the launch counts zeroed just before and
    read just after (``flash_attention`` once per local-attention layer,
    ``linear_scan`` once per RG-LRU layer; every flash launch on the
-   tensor-core design); then the same tokens
+   tensor-core design, every scan launch on the ring); then the same
+   tokens
    teacher-forced through the plain path on the card (no kernel may
    launch there), whose logits must agree with the served ones;
 9. times both kernels at the main path's shape (device time: CUDA events
    behind a device sleep) against their bounds, their plain versions and
    (flash) ``scaled_dot_product_attention``, with TFLOP/s and the ratio
    to the library call, and flash and sdpa again with the host's launch
-   cost (no device sleep),
+   cost (no device sleep); the scan also at one request (1, 3000, 2560)
+   and in its direct design at the main shape, with TB/s and the share
+   of the bound,
    and the whole path: prefill wall, decode ms per token, tokens/s, peak
    memory and the device's busy share of one profiled generate;
 10. holds ``expert_matmul`` against its plain version on the card at the
@@ -171,6 +182,12 @@ def ptxas_usage(report: str) -> dict:
         if m and fn:
             usage[fn] = (int(m.group(1)),) + spill
     return usage
+
+
+def off16(torch, x):
+    """A copy of ``x`` whose data starts one float past a 16-byte
+    boundary."""
+    return torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
 
 
 def fail(msg: str) -> None:
@@ -466,6 +483,7 @@ def serve_phases(torch, dev):
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.linear_scan import (linear_scan_cuda,
+                                                 linear_scan_design,
                                                  linear_scan_ref)
     from repro_torch.models import build_model
     from repro_torch.models.transformer import lm_prefill_hidden
@@ -525,20 +543,34 @@ def serve_phases(torch, dev):
     del again, q, k, v
     scan_err = 0.0
     main_ab = None
-    for shape in [(SERVE_B, S, cfg.lru_width), (3, 1001, 96)]:
+    main_scan = (SERVE_B, S, cfg.lru_width)
+    # both designs: the ring where TMA can describe the rows (D a multiple
+    # of 4, 16-byte aligned pointers), else direct; at the main shape once
+    # more on pointers one float past a 16-byte boundary (direct)
+    for shape, aligned in [(main_scan, True), (main_scan, False),
+                           ((1, S, cfg.lru_width), True),
+                           ((3, 1001, 96), True), ((3, 1001, 97), True),
+                           ((2, 65, 100), True)]:
         a = torch.rand(shape, generator=gen, device=dev) * 0.5 + 0.5
         b = draw(shape, torch.float32)
+        if not aligned:
+            a, b = off16(torch, a), off16(torch, b)
+        design = linear_scan_design(shape[2], aligned)
+        before = _build.DESIGN_COUNTS[("linear_scan", design)]
         got = linear_scan_cuda(a, b)
+        took = _build.DESIGN_COUNTS[("linear_scan", design)] - before
         want = linear_scan_ref(a, b)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        ok = bool(torch.equal(got, want))
-        print(f"  linear_scan {shape}: {'ok' if ok else 'FAIL'} "
-              f"max_abs_err={err:.3e} (bitwise)")
-        if shape[1] == S:
-            scan_err, main_ab = err, (a, b)
+        ok = bool(torch.equal(got, want)) and took == 1
+        print(f"  linear_scan {shape} design {design} ({took} launch): "
+              f"{'ok' if ok else 'FAIL'} max_abs_err={err:.3e} (bitwise)")
+        if shape == main_scan:
+            scan_err = max(scan_err, err)
+            if design == "ring":
+                main_ab = (a, b)
         if not ok:
-            failed.append(f"linear_scan {shape}")
+            failed.append(f"linear_scan {shape} {design}")
     if failed:
         fail("kernel vs plain: " + "; ".join(failed))
 
@@ -584,6 +616,9 @@ def serve_phases(torch, dev):
     if designs[("flash_attention", "tc")] != want_launches["flash_attention"]:
         fail(f"the main path's bf16 flash launches did not all take the "
              f"tensor-core design: {designs}")
+    if designs[("linear_scan", "ring")] != want_launches["linear_scan"]:
+        fail(f"the main path's scan launches did not all take the ring "
+             f"design: {designs}")
     if tuple(toks.shape) != (SERVE_B, SERVE_STEPS) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
         fail(f"generated tokens of shape {tuple(toks.shape)} outside "
@@ -629,14 +664,26 @@ def serve_phases(torch, dev):
 
     # 9. times: both kernels at the main path's shape, then the path
     f_ms, f_plain, f_lib, f_bound, f_by = time_flash(torch, main_qkv, W)
+    # the scan: the ring at the main shape and at one request, and the
+    # direct design at the main shape (the same values one float past a
+    # 16-byte boundary) for comparison
     a, b = main_ab
-    s_ms = cuda_ms(torch, lambda: linear_scan_cuda(a, b))
+    scan_times = []
+    for (x, y), design in [(main_ab, "ring"),
+                           ((a[:1].clone(), b[:1].clone()), "ring"),
+                           ((off16(torch, a), off16(torch, b)), "direct")]:
+        k_ms = cuda_ms(torch, lambda: linear_scan_cuda(x, y))
+        s_bytes = 3 * x.numel() * 4
+        s_bound = s_bytes / HBM_BYTES_PER_S * 1e3
+        scan_times.append((k_ms, s_bound))
+        print(f"linear_scan at {tuple(x.shape)} f32, design {design}: "
+              f"kernel {k_ms:.4f} ms ({s_bytes / k_ms / 1e9:.3f} TB/s, "
+              f"{s_bound / k_ms:.3f} of the bound); bound {s_bound:.4f} ms "
+              f"by bytes ({s_bytes} bytes); no single PyTorch call")
     s_plain = cuda_ms(torch, lambda: linear_scan_ref(a, b))
-    s_bytes = 3 * a.numel() * 4
-    s_bound = s_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"linear_scan at {tuple(a.shape)} f32: kernel {s_ms:.4f} ms, "
-          f"plain {s_plain:.4f} ms, no single PyTorch call; bound "
-          f"{s_bound:.4f} ms by bytes ({s_bytes} bytes)")
+    s_ms, s_bound = scan_times[0]
+    print(f"linear_scan plain version at {tuple(a.shape)}: {s_plain:.4f} ms")
+    del x, y, a, b
 
     prefill_s = gen_s = float("inf")
     for _ in range(2):
@@ -990,7 +1037,8 @@ def main() -> None:
     for lib, build_s in built.values():
         print(f"build: {lib.relative_to(ROOT)} in {build_s:.2f} s")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s wall")
-    # the bf16 tensor-core kernels: registers, and no spill
+    # the bf16 tensor-core kernels, both scan designs and the main path's
+    # we_rounds instance: registers, and no spill
     for label, lib, part in [
             ("flash_attention tc d=64", fk.LIBRARY, "flash_tc_kernelILi64E"),
             ("flash_attention tc d=256", fk.LIBRARY,
@@ -998,7 +1046,11 @@ def main() -> None:
             ("expert_matmul tc prefill (wgmma)", gk.LIBRARY,
              "expert_matmul_wgmma_kernel"),
             ("expert_matmul tc decode (mma.sync)", gk.LIBRARY,
-             "expert_matmul_tc_kernel")]:
+             "expert_matmul_tc_kernel"),
+            ("linear_scan ring", lk.LIBRARY, "linear_scan_ring_kernel"),
+            ("linear_scan direct", lk.LIBRARY, "linear_scan_kernel"),
+            ("we_rounds CPL 2 (K <= 64: the main path)", wk.LIBRARY,
+             "we_rounds_kernelILi2EE")]:
         found = [u for fn, u in ptxas_usage(lib.report()).items()
                  if part in fn]
         if not found:
@@ -1041,11 +1093,15 @@ def main() -> None:
         want = torch.stack(cols, dim=1)
         torch.cuda.synchronize()
         ok, stats = compare(torch, got, want)
+        bitwise = bool(torch.equal(got, want))
         max_abs_err = max(max_abs_err, stats["t_comp_max_abs"])
-        print(f"  {mode:8s} {'ok' if ok else 'FAIL'} "
-              + " ".join(f"{k}={v:.3e}" for k, v in stats.items()))
+        print(f"  {mode:8s} {'ok' if ok and bitwise else 'FAIL'} "
+              + " ".join(f"{k}={v:.3e}" for k, v in stats.items())
+              + f" bitwise={bitwise}")
         if not ok:
             failed.append(f"kernel vs plain, {mode} mode")
+        if not bitwise:
+            failed.append(f"kernel vs plain, {mode} mode, not bitwise")
     if failed:
         fail("; ".join(failed))
 
@@ -1107,6 +1163,7 @@ def main() -> None:
                                                       cap=cap_u)
 
     rows_big_np, flags_big_np = panel_rows(specs, 8 * TRIALS, samplers)
+    bounds = {}
     sizes = {rows.shape[0]: (rows, flags),
              rows_big_np.shape[0]: (torch.from_numpy(rows_big_np).to(dev),
                                     torch.from_numpy(flags_big_np).to(dev))}
@@ -1114,8 +1171,23 @@ def main() -> None:
     for B, (r, fl) in sizes.items():
         times[B] = (cuda_ms(torch, kernel_fn(r, fl)),
                     cuda_ms(torch, plain_fn(r, fl)))
+        # the bound from this run's rows: every busy cell-round needs its
+        # Gamma and Binomial Threefry pairs (a loose floor: no boost pairs,
+        # transcendentals or reductions, every lane useful)
+        out = kernel_fn(r, fl)()
+        rounds = float(out[:, 1].double().sum().item())
+        ops = rounds * K_PAPER * 2 * THREEFRY_INT_OPS
+        nbytes = r.numel() * 4 + fl.numel() * 4 + out.numel() * 4
+        ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, \
+            nbytes / HBM_BYTES_PER_S * 1e3
+        bounds[B] = (max(ops_ms, bytes_ms),
+                     "operations" if ops_ms >= bytes_ms else "bytes")
         print(f"we_rounds at {B} rows: kernel {times[B][0]:.4f} ms, plain "
-              f"{times[B][1]:.4f} ms")
+              f"{times[B][1]:.4f} ms; bound {bounds[B][0]:.4f} ms by "
+              f"{bounds[B][1]} ({ops:.4e} int ops -> {ops_ms:.4f} ms; "
+              f"{nbytes} bytes -> {bytes_ms:.5f} ms; {rounds / B:.3f} "
+              f"rounds a row); {bounds[B][0] / times[B][0]:.3f} of the "
+              f"bound")
     wall = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1164,18 +1236,6 @@ def main() -> None:
         print("profiled panel: the profiler recorded no device time "
               "(device busy share not measured)")
 
-    # the bound at the main path's shape, from this run's rows: every busy
-    # cell-round needs its Gamma and Binomial Threefry pairs
-    out = wk.we_rounds_cuda(rows, seed, None, flags, **base, cap=cap_u,
-                            known=False)
-    rounds = float(out[:, 1].double().sum().item())
-    ops = rounds * K_PAPER * 2 * THREEFRY_INT_OPS
-    nbytes = rows.numel() * 4 + flags.numel() * 4 + out.numel() * 4
-    ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, \
-        nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    print(f"bound at {rows.shape[0]} rows: {ops:.4e} int ops -> "
-          f"{ops_ms:.4f} ms; {nbytes} bytes -> {bytes_ms:.5f} ms")
     B0 = rows.shape[0]
     serve_kernels = serve_phases(torch, dev)
     moe_kernels = moe_phases(torch, dev)
@@ -1186,8 +1246,7 @@ def main() -> None:
         "launches": launches["we_rounds"],
         "max_abs_err": max_abs_err,
         "ms": times[B0][0], "plain_ms": times[B0][1],
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms": bounds[B0][0], "bound_by": bounds[B0][1],
         "library_ms": None}] + serve_kernels + moe_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,8 @@ still has it.
 ``LAUNCH_COUNTS`` holds each kernel's launches, counted by its wrapper
 where the launch happens and nowhere else; ``DESIGN_COUNTS`` splits the
 launches of the kernels that have more than one design ("tc" on the
-tensor cores, "fma" on the FMA units) by the design each took.
+tensor cores, "fma" on the FMA units; the scan's "ring" and "direct") by
+the design each took.
 """
 from __future__ import annotations
 
@@ -44,8 +45,9 @@ SHARED_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 LAUNCH_COUNTS: Dict[str, int] = {"we_rounds": 0, "linear_scan": 0,
                                  "flash_attention": 0, "expert_matmul": 0}
 DESIGN_COUNTS: Dict[Tuple[str, str], int] = {
-    (name, design): 0 for name in ("flash_attention", "expert_matmul")
-    for design in ("tc", "fma")}
+    **{(name, design): 0 for name in ("flash_attention", "expert_matmul")
+       for design in ("tc", "fma")},
+    ("linear_scan", "ring"): 0, ("linear_scan", "direct"): 0}
 
 
 def reset_launch_counts() -> None:
@@ -81,6 +83,7 @@ class CudaLibrary:
         self.entry = entry
         self.argtypes = argtypes
         self._lib = None
+        self._fns: Dict[str, Callable[..., int]] = {}
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
@@ -108,16 +111,21 @@ class CudaLibrary:
         and the seconds spent compiling (0.0 when cached)."""
         return build_all([self])[self.name]
 
-    def function(self) -> Callable[..., int]:
-        """The loaded C entry point (building the library if needed)."""
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()[0]))
-                fn = getattr(lib, self.entry)
+    def function(self, entry: Optional[str] = None) -> Callable[..., int]:
+        """The loaded C entry point ``entry`` (default: the library's
+        ``entry``; every entry of a library takes ``argtypes``), building
+        the library if needed."""
+        entry = entry or self.entry
+        fn = self._fns.get(entry)
+        if fn is None:
+            with self._lock:
+                if self._lib is None:
+                    self._lib = ctypes.CDLL(str(self.build()[0]))
+                fn = getattr(self._lib, entry)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
-                self._lib = lib
-        return getattr(self._lib, self.entry)
+                self._fns[entry] = fn
+        return fn
 
 
 def build_all(libs: Iterable[CudaLibrary]) -> Dict[str, Tuple[Path, float]]:

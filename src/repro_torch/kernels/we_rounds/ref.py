@@ -16,11 +16,13 @@ Function by function the counterpart of ``repro.kernels.we_rounds.ref``
 * **straggler selection** -- per-trial argmin over the K workers.
 * **Binomial done-counts** -- the mean/variance-exact normal limit.
 
-Every operation runs in float32 in the reference's order.  ``log``,
-``cos``, ``exp`` and ``sqrt`` differ from XLA's by an ulp or so, and row
-sums are taken in another order, so results agree with the JAX package
-to float tolerance (rows where an ulp flips a discrete event -- the
-argmin finisher, ``busy``, the threshold test -- excepted), not bitwise.
+Every operation runs in float32 in the reference's order, except that
+row sums are taken in the CUDA kernel's order (``lane_sum``), so that on
+the card the kernel is bitwise equal to this version.  ``log``, ``cos``,
+``exp`` and ``sqrt`` differ from XLA's by an ulp or so, and XLA sums rows
+in another order, so results agree with the JAX package to float
+tolerance (rows where an ulp flips a discrete event -- the argmin
+finisher, ``busy``, the threshold test -- excepted), not bitwise.
 
 ``we_rounds_reference`` runs the whole batch as one Python loop over
 rounds; it is what the ``cuda`` backend runs for tensors on the CPU, and
@@ -126,6 +128,24 @@ def binomial_normal(z: torch.Tensor, n: torch.Tensor,
     return torch.minimum(torch.clamp_min(mean + z * std, 0.0), n)
 
 
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of a ``(rows, K)`` float32 tensor, ``(rows, 1)``, in the
+    CUDA kernel's order: 32 lanes, lane ``l`` summing columns ``l, l + 32,
+    ...`` from 0 in turn, then an xor butterfly over the lanes (every lane
+    ends with the same value, the halving tree below).  A library's
+    reduction order is its own (and may change with the version); this one
+    makes the kernel's sums bitwise equal to the plain version's."""
+    rows, K = x.shape
+    lanes = 32 * -(-K // 32)
+    x = torch.nn.functional.pad(x, (0, lanes - K)).view(rows, -1, 32)
+    s = torch.zeros((rows, 32), dtype=x.dtype, device=x.device)
+    for i in range(x.shape[1]):
+        s = s + x[:, i]
+    for m in (16, 8, 4, 2, 1):
+        s = s[:, :m] + s[:, m:2 * m]
+    return s
+
+
 # ---------------------------------------------------------------------------
 # the round pipeline on a (rows, K) tile
 # ---------------------------------------------------------------------------
@@ -204,7 +224,7 @@ def round_body(st: State, lam: torch.Tensor, inv_lam: torch.Tensor,
         rates = lam if known else st["lam_hat"]
         cap_eff = torch.tensor(float(cap), dtype=torch.float32,
                                device=lam.device)
-    share = rates * (st["n_rem"] / rates.sum(1, keepdim=True))
+    share = rates * (st["n_rem"] / lane_sum(rates))
     assign = torch.minimum(share, cap_eff)
     busy = assign > 0.5        # sub-half slivers carry over as leftover
     t_raw = gamma_mt(z_g, u0, u1, u2, torch.clamp_min(assign, 0.5), inv_lam)
@@ -215,10 +235,10 @@ def round_body(st: State, lam: torch.Tensor, inv_lam: torch.Tensor,
     p = torch.clamp(t_star / t_k, 0.0, 1.0)
     done = binomial_normal(z_b, torch.clamp_min(assign - 1.0, 0.0), p)
     done = torch.where(fin, assign, torch.where(busy, done, 0.0))
-    n_rem = st["n_rem"] - done.sum(1, keepdim=True)
+    n_rem = st["n_rem"] - lane_sum(done)
 
     started = st["iters"] > 0
-    comm = torch.clamp_min(assign - st["n_left"], 0.0).sum(1, keepdim=True)
+    comm = lane_sum(torch.clamp_min(assign - st["n_left"], 0.0))
 
     def upd(new, old):
         return torch.where(proceed, new, old)
@@ -268,8 +288,8 @@ def final_phase(st: State, lam: torch.Tensor, inv_lam: torch.Tensor,
         rates = torch.where(known_col, lam, st["lam_hat"])
     else:
         rates = lam if known else st["lam_hat"]
-    share = rates * (st["n_rem"] / rates.sum(1, keepdim=True))
-    comm = torch.clamp_min(share - st["n_left"], 0.0).sum(1, keepdim=True)
+    share = rates * (st["n_rem"] / lane_sum(rates))
+    comm = lane_sum(torch.clamp_min(share - st["n_left"], 0.0))
     t_k = torch.where(share > 1e-9,
                       gamma_mt(z_g, u0, u1, u2, torch.clamp_min(share, 1e-9),
                                inv_lam), 0.0)

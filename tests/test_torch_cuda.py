@@ -19,9 +19,15 @@ uses, and why:
   work unit (it sums differences of nearly equal float32 assignments,
   which cancels digits); batch means agree at 6 combined standard errors.
 
+``we_rounds`` is also held bit for bit (``test_cuda_kernel_is_bitwise_
+plain_version``): on the card the plain version makes the same float32
+operations in the same order, its row sums in the kernel's lane order.
+
 ``linear_scan`` is bitwise equal to its plain version: the same float32
 multiply and add per step, in the same order, each rounded (the kernel is
-built with ``--fmad=false``).  ``flash_attention`` agrees to 2e-5 in
+built with ``--fmad=false``), in both designs ("ring", TMA-fed, for D a
+multiple of 4 on 16-byte aligned pointers; "direct" for the rest).
+``flash_attention`` agrees to 2e-5 in
 float32 and 2e-2 in bfloat16 (as ``tests/test_kernels.py``): the online
 softmax sums in another order, and bfloat16 output rounds to 8 bits.
 ``expert_matmul`` agrees to 1e-5 in float32 and 3e-2 in bfloat16, as
@@ -47,7 +53,9 @@ from repro_torch.kernels._build import (DESIGN_COUNTS, LAUNCH_COUNTS,
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_cuda,
                                                  flash_attention_design)
-from repro_torch.kernels.linear_scan import linear_scan_cuda, linear_scan_ref
+from repro_torch.kernels.linear_scan import (linear_scan_cuda,
+                                             linear_scan_design,
+                                             linear_scan_ref)
 from repro_torch.kernels.moe_gmm import (expert_matmul_cuda,
                                          expert_matmul_design,
                                          expert_matmul_ref)
@@ -116,6 +124,43 @@ def test_cuda_kernel_matches_plain_version(cuda_device, Kc, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 56, 64, 65, 256])
+@pytest.mark.parametrize("mode", ["known", "unknown", "drift", "panel"])
+def test_cuda_kernel_is_bitwise_plain_version(cuda_device, K, mode):
+    """Bit for bit: the kernel and the plain version make the same
+    Threefry words and the same float32 operations in the same order, row
+    sums included (``ref.lane_sum`` repeats the kernel's lanes and
+    butterfly).  Odd B, every column-per-lane instantiation and its edges,
+    zero-rate padding columns."""
+    B = 333
+    rng = np.random.default_rng(K)
+    lam = rng.uniform(5.0, 40.0, (B, K)).astype(np.float32)
+    lam[:, K - K // 8:] = 0.0              # zero-rate padding columns
+    lam_t = torch.from_numpy(lam).to(cuda_device)
+    n0 = 20_000.0
+    known = mode == "known"
+    sched = flags = None
+    if mode == "drift":
+        sched = torch.from_numpy((lam[:, None, :] * np.exp(
+            0.2 * rng.standard_normal((B, 5, K)))).astype(
+                np.float32)).to(cuda_device)
+    if mode == "panel":
+        flags = torch.from_numpy((np.arange(B) % 3 == 0).astype(
+            np.float32)).to(cuda_device)
+    kw = dict(n0=n0, threshold=0.01 * n0 / K, max_iter=10_000,
+              cap=float("inf") if known else float(np.ceil(n0 / K)))
+    got = kernel.we_rounds_cuda(lam_t, SEED, sched, flags, known=known,
+                                **kw)
+    want = torch.stack(
+        ref.we_rounds_reference_panel(lam_t, SEED, flags, sched, **kw)
+        if flags is not None else
+        ref.we_rounds_reference(lam_t, SEED, sched, known=known, **kw), 1)
+    torch.cuda.synchronize()
+    assert bool((got[:, 1] >= 1).all())
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
     kw = dict(n0=1000.0, threshold=1.0, cap=float("inf"), known=True,
               max_iter=100)
@@ -144,6 +189,40 @@ def test_linear_scan_kernel_is_bitwise_plain_version(cuda_device, B, S, D):
     torch.cuda.synchronize()
     assert LAUNCH_COUNTS["linear_scan"] == before + 1
     torch.testing.assert_close(got, linear_scan_ref(a, b), rtol=0, atol=0)
+
+
+RING_STEPS = 64     # the ring design's stage length (kSteps in the source)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, RING_STEPS - 1, RING_STEPS,
+                               RING_STEPS + 1, 1001, 3000])
+@pytest.mark.parametrize("D", [1, 31, 33, 96, 100, 2560])
+@pytest.mark.parametrize("B", [1, 4])
+def test_linear_scan_designs_are_bitwise_plain_version(cuda_device, B, D,
+                                                       S):
+    """Both designs (ring: D a multiple of 4; direct: the rest, and a
+    pointer off 16 bytes) over ragged channel tiles and stages; each
+    launch takes the design ``linear_scan_design`` names."""
+    rng = np.random.default_rng(B * 7919 + D * 31 + S)
+    a_np = rng.uniform(0.5, 1.0, (B, S, D)).astype(np.float32)
+    b_np = rng.standard_normal((B, S, D)).astype(np.float32)
+    a, b = (torch.from_numpy(x).to(cuda_device) for x in (a_np, b_np))
+    # the same values one float past a 16-byte boundary
+    a_off, b_off = (torch.cat([torch.zeros(1, device=cuda_device),
+                               x.flatten()])[1:].view(B, S, D)
+                    for x in (a, b))
+    want = linear_scan_ref(a, b)
+    for x, y, aligned in ((a, b, True), (a_off, b_off, False)):
+        design = linear_scan_design(D, aligned)
+        reset_launch_counts()
+        got = linear_scan_cuda(x, y)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in DESIGN_COUNTS.items() if n} == {
+            ("linear_scan", design): 1}
+        assert LAUNCH_COUNTS["linear_scan"] == 1
+        assert torch.equal(got, want), (design, float(
+            (got - want).abs().max()))
 
 
 FLASH_CASES = [
@@ -400,6 +479,7 @@ def test_serve_path_on_the_card_runs_the_kernels(cuda_device):
         outs[str(dev)] = torch.cat(steps, 1).cpu()
         counts = dict(LAUNCH_COUNTS)
     assert counts["flash_attention"] == 2 and counts["linear_scan"] == 4
+    assert DESIGN_COUNTS[("linear_scan", "ring")] == 4     # lru_width 64
     torch.testing.assert_close(outs[str(cuda_device)], outs["cpu"],
                                rtol=1e-4, atol=1e-4)
 
