@@ -95,11 +95,37 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     launch cost and as the host's cost a call, ``flash_attention`` at
     granite's shape as in 9, and the whole path: prefill
     wall, decode ms per step, tokens/s, peak memory and the device's
-    busy share of one profiled generate.
+    busy share of one profiled generate;
+14. holds each kernel op's gradients on the card against autograd of its
+    plain version: float32 at the shapes of ``tests/test_kernels.py``'s
+    VJP tests (1e-4), and at the model's shapes on fixed cotangents --
+    ``linear_scan`` (1, 2560, 2560) bitwise, ``flash_attention`` (1,
+    2560, 10 Q heads, 1 KV head, d 256, window 2048, bf16) bitwise (its
+    backward is the plain version's), ``expert_matmul`` at granite's two
+    prefill shapes in bf16 within a relative RMS of 2^-7; every CUDA
+    output carries a ``grad_fn`` and each backward's launches are counted
+    by design (the scan's one, on the ring; the expert product's two;
+    flash's none); then times both training kernels at the training
+    shapes and each op's whole backward;
+15. one gradient step of recurrentgemma-2b at full width and depth 3 (one
+    (rec, rec, attn) period, 1 x 2560 tokens, bf16), with remat off and
+    on and the launches counted against the layer plan, then the kernel
+    path against the plain path on the card (no kernel may launch there):
+    the loss within 1e-3 relative, each gradient leaf within a relative
+    RMS of 2e-2;
+16. trains recurrentgemma-2b at its published width and depth: four
+    ``fit`` steps (AdamW with float32 state, constant lr 1e-4, remat per
+    period) on one repeated 1 x 2560 structured batch, with the launch
+    counts zeroed just before and read just after (``flash_attention`` 16
+    and ``linear_scan`` 52 a step, all on the tensor-core / ring designs);
+    every loss and grad norm finite and the last loss below the first;
+    prints the step wall (warm minimum), tokens/s, peak memory, and one
+    profiled step's busy share and device time by kind.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
-path) and, last, ``{"ok": true,
+path and one for the training path, where each entry also names its
+``backward`` and times it, ``backward_ms``) and, last, ``{"ok": true,
 "device": {...}}``.  Any failed phase exits non-zero with no result line;
 without a CUDA device it exits 1 at once.
 """
@@ -163,6 +189,49 @@ MOE_LAYER_REL_RMS = 1e-3
 # of a token to another expert; 1e-1 bounds both
 MOE_LOGIT_REL_RMS = 1e-1
 SLEEP_CYCLES = 2_000_000        # ~1 ms of device time at the H100's clock
+TRAIN_ARCH, TRAIN_S, TRAIN_STEPS, TRAIN_LR = "recurrentgemma-2b", 2560, 4, \
+    1e-4
+TRAIN_PATH = f"train-{TRAIN_ARCH}"
+REPLACES = {"linear_scan": "src/repro/kernels/linear_scan/kernel.py:22",
+            "flash_attention":
+            "src/repro/kernels/flash_attention/kernel.py:30"}
+BACKWARDS = {
+    "linear_scan": "LinearScan.backward, src/repro_torch/kernels/"
+                   "linear_scan/ops.py: the same kernel on reversed inputs "
+                   "(the Pallas call of src/repro/kernels/linear_scan/"
+                   "ops.py:33)",
+    "flash_attention": "FlashAttention.backward, src/repro_torch/kernels/"
+                       "flash_attention/ops.py: attention_ref recomputed "
+                       "and differentiated, no kernel (as "
+                       "src/repro/kernels/flash_attention/ops.py:32-38)"}
+# each op's gradients against autograd of its plain version.  float32 at
+# the shapes of tests/test_kernels.py's VJP tests, loss sum(out ** 2): 1e-4,
+# as those tests hold the JAX ops (the forwards differ within their own
+# tolerances).  At the model's shapes, on a fixed cotangent: the scan
+# bitwise (its reverse scan makes the plain loop's backward operations in
+# the same order, each rounded) and attention bitwise (its backward is
+# autograd of the plain version); the bf16 expert products within a
+# relative RMS of 2^-7: both sides round one float32 sum per element to
+# bf16, and the two sums, in another order, differ by far less than a bf16
+# ulp, so an element differs by at most one ulp, <= 2^-7 of itself
+GRAD_TOL = 1e-4
+GMM_GRAD_REL_RMS = 2.0 ** -7
+# one gradient step at full width and depth 3, kernel path against plain
+# path on the card: the RG-LRU layers are bitwise equal on both paths, so
+# the two differ only by flash's bf16 forward (phase 7: within 2e-2, about a
+# bf16 ulp on some elements); that moves the loss by far less than 1e-3 of
+# itself and each gradient leaf, through bf16 roundings downstream of it,
+# by some 1e-3 (relative RMS) where the leaf sums over positions, more for
+# the embedding, whose rows each hold one position's cotangent
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_REL_RMS = 2e-2
+# device kernels by kind, for a profiled step's breakdown (the first group
+# whose word is in the kernel's name)
+DEVICE_GROUPS = (("port kernels", ("linear_scan", "flash_")),
+                 ("matrix products", ("nvjet", "gemm", "cutlass", "xmma")),
+                 ("copies and fills", ("copy", "Memcpy", "Memset", "fill")),
+                 ("reductions", ("reduce",)),
+                 ("elementwise", ("elementwise",)))
 
 
 def ptxas_usage(report: str) -> dict:
@@ -313,9 +382,10 @@ def flash_bound(q, k, window: int):
         "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
 
 
-def profile_generate(torch, generate) -> None:
-    """One profiled generate: wall, the device's busy share, and the ten
-    device kernels that took the most time."""
+def profile_generate(torch, generate, label: str = "generate") -> list:
+    """One profiled run of ``generate``: wall, the device's busy share, and
+    the ten device kernels that took the most time.  Returns the device
+    events (kernels, copies) with their device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -328,7 +398,7 @@ def profile_generate(torch, generate) -> None:
                   and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in dev_events)
     if dev_us > 0:
-        print(f"profiled generate: wall {prof_wall * 1e3:.3f} ms, device "
+        print(f"profiled {label}: wall {prof_wall * 1e3:.3f} ms, device "
               f"busy {dev_us / 1e3:.3f} ms "
               f"({100 * dev_us / (prof_wall * 1e6):.2f}% of wall); top "
               f"device time:")
@@ -337,8 +407,9 @@ def profile_generate(torch, generate) -> None:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
                   f"x{e.count:<5d} {e.key[:70]}")
     else:
-        print("profiled generate: the profiler recorded no device time "
-              "(device busy share not measured)")
+        print(f"profiled {label}: the profiler recorded no device time "
+              f"(device busy share not measured)")
+    return dev_events
 
 
 def leaves(tree):
@@ -458,7 +529,8 @@ def gmm_bound(E: int, C: int, D: int, F: int, elem: int):
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel ops to their plain versions, also on
-    CUDA tensors: the plain path on the card that the served logits are
+    CUDA tensors: the plain path on the card that the served logits and
+    the training step's gradients (autograd of the plain versions) are
     held against.  The launch counts show that no kernel ran inside."""
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.linear_scan import linear_scan_ref
@@ -1002,6 +1074,342 @@ def moe_phases(torch, dev):
          "bound_by": by, "library_ms": l_ms}]
 
 
+def named_leaves(tree, prefix: str = ""):
+    """(path, tensor) of each leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}.{k}" if prefix else k)
+    else:
+        yield prefix, tree
+
+
+def backward_of(torch, op, inputs, cot=None):
+    """Gradients of ``sum(out * cot)`` (without ``cot``, of ``sum(out **
+    2)``) in fresh leaves of ``inputs``, where ``out = op(*leaves)``:
+    (grads, out, the launches the backward alone made, by kernel and by
+    design)."""
+    from repro_torch.kernels import _build
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    out = op(*leaves)
+    loss = (out.float() ** 2).sum() if cot is None else \
+        (out.float() * cot.float()).sum()
+    _build.reset_launch_counts()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return grads, out, \
+        {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}, \
+        {k: v for k, v in _build.DESIGN_COUNTS.items() if v}
+
+
+def launches_per_step(cfg, remat: bool) -> dict:
+    """The kernel launches of one gradient step, from the layer plan: a
+    flash forward per attention layer, a scan forward and a scan backward
+    per RG-LRU layer, and with ``remat`` each body period's forward once
+    more inside the backward (the tail sits outside the checkpoint)."""
+    from repro_torch.models.transformer import layer_plan
+    period, full, tail = layer_plan(cfg)
+    body = {k: full * period.count(k) for k in ("attn", "rec")}
+    n = {k: body[k] + tail.count(k) for k in ("attn", "rec")}
+    again = body if remat else {"attn": 0, "rec": 0}
+    return {"flash_attention": n["attn"] + again["attn"],
+            "linear_scan": 2 * n["rec"] + again["rec"]}
+
+
+def grad_phase(torch, dev, cfg):
+    """Phase 14.  Returns {kernel: (max abs error, kernel ms, plain ms,
+    bound ms, bound_by, library ms, whole backward ms)} of the two kernels
+    of the training path, at its shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.linear_scan import (linear_scan,
+                                                 linear_scan_cuda,
+                                                 linear_scan_ref)
+    from repro_torch.kernels.moe_gmm import expert_matmul, expert_matmul_ref
+    from repro_torch.models import moe as moe_mod
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def draw(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def coeffs(shape):
+        return torch.rand(shape, generator=gen, device=dev) * 0.49 + 0.5
+
+    def flash_w(q, k, v):
+        return flash_attention(q, k, v, True, cfg.window)
+
+    def plain_w(q, k, v):
+        return attention_ref(q, k, v, True, cfg.window)
+
+    # (label, op, plain version, inputs, cotangent (None: sum(out ** 2)),
+    # tolerance (a float for allclose, "bitwise" or a relative RMS limit
+    # as ("rms", limit)), the backward's launches by design)
+    S, R = TRAIN_S, cfg.lru_width
+    scan_in = (coeffs((1, S, R)), draw((1, S, R)))
+    qkv = (draw((1, S, cfg.n_heads, cfg.hd), torch.bfloat16),
+           draw((1, S, cfg.n_kv_heads, cfg.hd), torch.bfloat16),
+           draw((1, S, cfg.n_kv_heads, cfg.hd), torch.bfloat16))
+    cases = [
+        ("linear_scan f32 (1, 64, 8)", linear_scan, linear_scan_ref,
+         (coeffs((1, 64, 8)), draw((1, 64, 8))), None, GRAD_TOL,
+         {("linear_scan", "ring"): 1}),
+        ("flash_attention f32 (1, 64, 2/1 heads, 16)", flash_attention,
+         attention_ref, (draw((1, 64, 2, 16)), draw((1, 64, 1, 16)),
+                         draw((1, 64, 1, 16))), None, GRAD_TOL, {}),
+        ("expert_matmul f32 (2, 32, 32, 32)", expert_matmul,
+         expert_matmul_ref,
+         (draw((2, 32, 32)), draw((2, 32, 32), scale=32 ** -0.5)), None,
+         GRAD_TOL, {("expert_matmul", "fma"): 2}),
+        (f"linear_scan f32 {(1, S, R)}", linear_scan, linear_scan_ref,
+         scan_in, draw((1, S, R)), "bitwise", {("linear_scan", "ring"): 1}),
+        (f"flash_attention bf16 (1, {S}, {cfg.n_heads}/{cfg.n_kv_heads} "
+         f"heads, {cfg.hd}) window {cfg.window}", flash_w, plain_w, qkv,
+         draw(qkv[0].shape, torch.bfloat16), "bitwise", {}),
+    ]
+    moe = get_config(MOE_ARCH)
+    E, C = moe.n_experts, moe_mod._capacity(MOE_B * MOE_PROMPT, moe)
+    for label, (d_in, d_out) in (("gate/up", (moe.d_model, moe.d_ff)),
+                                 ("down", (moe.d_ff, moe.d_model))):
+        cases.append((
+            f"expert_matmul bf16 prefill {label} ({E}, {C}, {d_in}, "
+            f"{d_out})", expert_matmul, expert_matmul_ref,
+            (draw((E, C, d_in), torch.bfloat16),
+             draw((E, d_in, d_out), torch.bfloat16, d_in ** -0.5)),
+            draw((E, C, d_out), torch.bfloat16), ("rms", GMM_GRAD_REL_RMS),
+            {("expert_matmul", "tc"): 2}))
+    failed, errs = [], {}
+    for label, op, plain, inputs, cot, tol, want_designs in cases:
+        got, out, launched, designs = backward_of(torch, op, inputs, cot)
+        want, _, plain_launched, _ = backward_of(torch, plain, inputs, cot)
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        if tol == "bitwise":
+            ok, told = all(torch.equal(g, w) for g, w in zip(got, want)), \
+                "bitwise"
+        elif isinstance(tol, tuple):
+            rms = max(rel_rms(g, w) for g, w in zip(got, want))
+            ok, told = rms <= tol[1], \
+                f"relative RMS {rms:.3e}, limit {tol[1]:.3e}"
+        else:
+            ok, told = all(bool(torch.allclose(g, w, rtol=tol, atol=tol))
+                           for g, w in zip(got, want)), f"tol {tol}"
+        want_launches = {}
+        for (kernel, _), n in want_designs.items():
+            want_launches[kernel] = want_launches.get(kernel, 0) + n
+        ok = ok and out.grad_fn is not None and not plain_launched \
+            and launched == want_launches and designs == want_designs \
+            and all(bool(torch.isfinite(g).all()) for g in got)
+        name = label.split()[0]
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"  grad {label}: {'ok' if ok else 'FAIL'} max_abs_err "
+              f"{err:.3e} ({told}); the backward's launches "
+              f"{designs or 'none'}; output grad_fn "
+              f"{type(out.grad_fn).__name__}")
+        if not ok:
+            failed.append(label)
+        del got, want, out
+    if failed:
+        fail("op gradients against autograd of the plain versions: "
+             + "; ".join(failed))
+
+    # times at the training shapes: the scan kernel (its backward launch
+    # is the same kernel at the same shape), flash's forward against its
+    # plain version and SDPA, and each op's whole backward
+    a, b = scan_in
+    s_ms = cuda_ms(torch, lambda: linear_scan_cuda(a, b))
+    s_plain = cuda_ms(torch, lambda: linear_scan_ref(a, b))
+    s_bytes = 3 * a.numel() * 4
+    s_bound = s_bytes / HBM_BYTES_PER_S * 1e3
+    bwd_ms = {}
+    for name, op, inputs in (("linear_scan", linear_scan, scan_in),
+                             ("flash_attention", flash_w, qkv)):
+        leaves = [x.detach().clone().requires_grad_() for x in inputs]
+        out = op(*leaves)
+        cot = torch.ones_like(out)
+        bwd_ms[name] = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, cot, retain_graph=True))
+        del leaves, out, cot
+    print(f"linear_scan at {tuple(a.shape)} f32 (the training shape of its "
+          f"forward and backward launches): kernel {s_ms:.4f} ms "
+          f"({s_bytes / s_ms / 1e9:.3f} TB/s, {s_bound / s_ms:.3f} of the "
+          f"bound), plain {s_plain:.4f} ms; bound {s_bound:.4f} ms by bytes "
+          f"({s_bytes} bytes); the whole backward (the reverse scan's "
+          f"launch, flips, shifts and da = db * h_prev) "
+          f"{bwd_ms['linear_scan']:.4f} ms")
+    f_ms, f_plain, f_lib, f_bound, f_by = time_flash(torch, qkv, cfg.window)
+    print(f"flash_attention backward at {tuple(qkv[0].shape)} bf16, window "
+          f"{cfg.window} (the plain version recomputed and differentiated): "
+          f"{bwd_ms['flash_attention']:.4f} ms")
+    return {"linear_scan": (errs["linear_scan"], s_ms, s_plain, s_bound,
+                            "bytes", None, bwd_ms["linear_scan"]),
+            "flash_attention": (errs["flash_attention"], f_ms, f_plain,
+                                f_bound, f_by, f_lib,
+                                bwd_ms["flash_attention"])}
+
+
+def train_phases(torch, dev):
+    """Phases 14-16; returns the training path's JSON entries."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import structured_unit
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train.loop import fit, make_grad_step, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    # 14. each op's gradients on the card against its plain version
+    times = grad_phase(torch, dev, cfg)
+    batch = structured_unit(0, 1, TRAIN_S, cfg.vocab_size)
+
+    # 15. one gradient step at full width and depth 3, kernel against plain
+    cfg3 = dataclasses.replace(cfg, n_layers=3)
+    model3 = build_model(cfg3)
+    params3 = model3.init(seed=0, device=dev)
+    for remat in (False, True):
+        _build.reset_launch_counts()
+        loss_k, grads_k = make_grad_step(model3, remat=remat)(params3, batch)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}
+        designs = {k: v for k, v in _build.DESIGN_COUNTS.items() if v}
+        want = launches_per_step(cfg3, remat)
+        print(f"depth-3 {TRAIN_ARCH} gradient step (1 x {TRAIN_S}, bf16), "
+              f"remat {remat}: launches {launches} (want {want}); designs "
+              f"{designs}")
+        if launches != want or designs != {
+                ("flash_attention", "tc"): want["flash_attention"],
+                ("linear_scan", "ring"): want["linear_scan"]}:
+            fail(f"depth-3 step launches {launches}, designs {designs}; "
+                 f"want {want}, all on tc / ring")
+    _build.reset_launch_counts()
+    with plain_kernels():
+        loss_p, grads_p = make_grad_step(model3, remat=True)(params3, batch)
+    torch.cuda.synchronize()
+    if any(_build.LAUNCH_COUNTS.values()):
+        fail(f"the plain training path launched kernels: "
+             f"{_build.LAUNCH_COUNTS}")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    finite = bool(torch.isfinite(loss_k))
+    worst, worst_rms = "", -1.0
+    for (path, g), (_, w) in zip(named_leaves(grads_k),
+                                 named_leaves(grads_p)):
+        finite = finite and bool(torch.isfinite(g).all())
+        r = rel_rms(g, w)
+        if not r <= worst_rms:          # a NaN is the worst
+            worst, worst_rms = path, r
+    print(f"  kernel path against the plain path (remat on): loss "
+          f"{float(loss_k):.6f} vs {float(loss_p):.6f}, relative "
+          f"{loss_rel:.3e} (limit {TRAIN_LOSS_RTOL}); worst gradient leaf "
+          f"{worst}: relative RMS {worst_rms:.3e} (limit "
+          f"{TRAIN_GRAD_REL_RMS})")
+    if not finite or not loss_rel <= TRAIN_LOSS_RTOL \
+            or not worst_rms <= TRAIN_GRAD_REL_RMS:
+        fail("the depth-3 training step's kernel path does not agree with "
+             "its plain path")
+    del params3, grads_k, grads_p, model3
+
+    # 16. the slice: recurrentgemma-2b at full width and depth, four fit
+    # steps on one repeated batch at a constant rate
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params, n_bytes = describe_params(params)
+    print(f"train path: {TRAIN_ARCH} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} weights "
+          f"({n_params:.4e} parameters, {n_bytes / 1e9:.3f} GB, drawn in "
+          f"{time.perf_counter() - t0:.2f} s), float32 AdamW state, remat "
+          f"per period; batch 1 x {TRAIN_S} structured tokens, lr "
+          f"{TRAIN_LR} constant")
+    opt = AdamW(lr=constant(TRAIN_LR))
+    per_step = launches_per_step(cfg, True)
+    want = {n: TRAIN_STEPS * per_step.get(n, 0) for n in _build.LAUNCH_COUNTS}
+    stamps = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, hist = fit(
+        model, params, opt, [batch] * TRAIN_STEPS, remat=True, log_every=1,
+        callback=lambda i, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCH_COUNTS)
+    designs = dict(_build.DESIGN_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_s = np.diff([t0] + stamps)
+    warm_s = float(step_s[1:].min())
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    print(f"  fit: losses {losses}; grad norms {norms}; step wall "
+          f"{[round(float(s) * 1e3, 3) for s in step_s]} ms (the first with the "
+          f"optimizer's init); launches {launches} (want {want}); designs "
+          f"{designs}; peak memory {peak_gb:.3f} GB")
+    if launches != want or \
+            designs[("flash_attention", "tc")] != want["flash_attention"] \
+            or designs[("linear_scan", "ring")] != want["linear_scan"]:
+        fail(f"the training path's launches {launches} / designs {designs} "
+             f"are not {want}, all on tc / ring")
+    if not np.all(np.isfinite(losses + norms)) or \
+            not losses[-1] < losses[0]:
+        fail(f"training losses {losses}, grad norms {norms}: not finite, or "
+             f"the last loss is not below the first")
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    print(f"train {TRAIN_ARCH} 1 x {TRAIN_S}: step {warm_s * 1e3:.3f} ms "
+          f"(warm min of {TRAIN_STEPS - 1}), {TRAIN_S / warm_s:.1f} tokens/s;"
+          f" peak memory {peak_gb:.3f} GB of {total_gb:.3f}")
+    # the step's two halves, device time (CUDA events): the gradient
+    # (forward, the remat recompute, backward) and the AdamW update
+    grad_step = make_grad_step(model, remat=True)
+    g_ms = cuda_ms(torch, lambda: grad_step(params, batch), reps=2)
+    _, grads = grad_step(params, batch)
+    u_ms = cuda_ms(torch, lambda: opt.update(grads, state, params), reps=2)
+    del grads
+    print(f"  the step's halves (warm min of 2): gradient {g_ms:.3f} ms, "
+          f"AdamW update (its clip-norm pass included) {u_ms:.3f} ms")
+    step = make_train_step(model, opt, remat=True)
+    events = profile_generate(torch, lambda: step(params, state, batch),
+                              "train step")
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"  the profiled step's device time over the unprofiled warm "
+          f"step: {100 * busy_ms / (warm_s * 1e3):.2f}%")
+    groups = {}
+    for e in events:
+        group = next((g for g, words in DEVICE_GROUPS
+                      if any(w in e.key for w in words)), "other")
+        n, us = groups.get(group, (0, 0.0))
+        groups[group] = (n + e.count, us + e.self_device_time_total)
+    print("  its device time by kind: " + "; ".join(
+        f"{g} {us / 1e3:.3f} ms (x{n})" for g, (n, us) in sorted(
+            groups.items(), key=lambda kv: -kv[1][1])))
+    scan = [e for e in events if "linear_scan" in e.key]
+    scan_n = sum(e.count for e in scan)
+    scan_us = sum(e.self_device_time_total for e in scan)
+    n_rec = cfg.layer_kinds().count("rec")
+    n_attn = cfg.layer_kinds().count("attn")
+    print(f"  in that step: the scan kernel {scan_n} launches, "
+          f"{scan_us / 1e3:.3f} ms; its {n_rec} backward launches (one per "
+          f"RG-LRU layer, the forward's shape) "
+          f"{n_rec * scan_us / max(scan_n, 1) / 1e3:.3f} ms at the step's "
+          f"mean, {n_rec * times['linear_scan'][1]:.3f} ms at phase 14's "
+          f"time; the {n_rec} whole scan backwards "
+          f"{n_rec * times['linear_scan'][6]:.3f} ms; flash's {n_attn} plain "
+          f"recomputes, differentiated, "
+          f"{n_attn * times['flash_attention'][6]:.3f} ms (phase 14's times)")
+    del params, state, model, step
+    entries = []
+    for name in ("linear_scan", "flash_attention"):
+        err, ms, plain_ms, bound, by, lib, bwd = times[name]
+        entries.append({
+            "name": name, "path": TRAIN_PATH, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "backward": BACKWARDS[name],
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib, "backward_ms": bwd})
+    return entries
+
+
 def main() -> None:
     import torch
 
@@ -1239,6 +1647,7 @@ def main() -> None:
     B0 = rows.shape[0]
     serve_kernels = serve_phases(torch, dev)
     moe_kernels = moe_phases(torch, dev)
+    train_kernels = train_phases(torch, dev)
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -1247,7 +1656,8 @@ def main() -> None:
         "max_abs_err": max_abs_err,
         "ms": times[B0][0], "plain_ms": times[B0][1],
         "bound_ms": bounds[B0][0], "bound_by": bounds[B0][1],
-        "library_ms": None}] + serve_kernels + moe_kernels}))
+        "library_ms": None}] + serve_kernels + moe_kernels
+        + train_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

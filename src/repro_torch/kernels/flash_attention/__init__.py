@@ -1,4 +1,4 @@
-"""GQA flash attention forward (causal, sliding window)."""
+"""GQA flash attention (causal, sliding window), differentiable."""
 from .kernel import flash_attention_cuda, flash_attention_design
 from .ops import flash_attention
 from .ref import attention_ref

@@ -1,6 +1,14 @@
-"""Dispatch for the batched expert product: a CUDA tensor launches the
-hand-written kernel, a CPU tensor runs the plain version.  Nothing falls
-back from one to the other."""
+"""The differentiable batched expert product.
+
+Forward and backward dispatch by device: a CUDA tensor launches the
+hand-written kernel, a CPU tensor runs the plain version; nothing falls
+back from one to the other.  The backward of Y = X W per expert is two
+more products through the same op, on transposed contiguous operands:
+    dX = dY W^T       (E, C, F) x (E, F, D)
+    dW = X^T dY       (E, D, C) x (E, C, F)
+(The JAX package's MoE computes the products with einsum and lets XLA
+differentiate them; the oracle is autograd of the plain product.)
+"""
 from __future__ import annotations
 
 import torch
@@ -9,8 +17,33 @@ from .kernel import expert_matmul_cuda
 from .ref import expert_matmul_ref
 
 
-def expert_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """buf: (E, C, D); w: (E, D, F). Returns (E, C, F) in buf's dtype."""
+def _matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if buf.is_cuda:
         return expert_matmul_cuda(buf, w)
     return expert_matmul_ref(buf, w)
+
+
+class ExpertMatmul(torch.autograd.Function):
+    """Y = X W per expert, whose backward is two more expert products."""
+
+    @staticmethod
+    def forward(ctx, buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(buf, w)
+        return _matmul(buf, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        buf, w = ctx.saved_tensors
+        g = g.contiguous()
+        dbuf = dw = None
+        if ctx.needs_input_grad[0]:
+            dbuf = _matmul(g, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = _matmul(buf.transpose(1, 2).contiguous(), g)
+        return dbuf, dw
+
+
+def expert_matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """buf: (E, C, D); w: (E, D, F). Returns (E, C, F) in buf's dtype;
+    differentiable in buf and w."""
+    return ExpertMatmul.apply(buf, w)

@@ -1,8 +1,9 @@
 """GQA attention (full, sliding-window and local): the port of
-``repro.models.attention`` for serving.
+``repro.models.attention`` for serving and training.
 
-Prefill context goes through the ``flash_attention`` op: the hand-written
-CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.  Decode
+Prefill and training context goes through the ``flash_attention`` op:
+the hand-written CUDA kernel on a CUDA tensor, its plain version on a
+CPU tensor (its backward recomputes through the plain version).  Decode
 attends one query over the cache in plain torch, as the JAX package does
 in XLA.  Full attention keeps a (B, S_max, kvH, hd) cache; sliding-window
 and local attention keep a ring of the window, the key at position p in
@@ -72,6 +73,25 @@ def gqa_cache_init(cfg, batch: int, s_max: int, window: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _gqa_seq(p: Params, cfg, x: torch.Tensor, window: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention over a whole sequence, x: (B, S, D); returns the output
+    and the keys and values."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    ctx = attention_ctx(q, k, v, cfg.hd ** -0.5, window=window)
+    return ctx.reshape(B, S, -1) @ p["wo"], k, v
+
+
+def gqa_forward(p: Params, cfg, x: torch.Tensor,
+                window: int = 0) -> torch.Tensor:
+    """Training / prefill-without-cache forward, x: (B, S, D).
+    Differentiable: the flash op's backward recomputes through its plain
+    version."""
+    return _gqa_seq(p, cfg, x, window)[0]
+
+
 def gqa_prefill(p: Params, cfg, x: torch.Tensor, cache: Params,
                 window: int = 0) -> Tuple[torch.Tensor, Params]:
     """Prefill: forward + a new populated cache; returns (out, cache).
@@ -81,10 +101,8 @@ def gqa_prefill(p: Params, cfg, x: torch.Tensor, cache: Params,
     JAX package stores them at slots 0..s_buf-1, which agrees only when
     S <= s_buf or S is a multiple of s_buf.)
     """
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :]
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    ctx = attention_ctx(q, k, v, cfg.hd ** -0.5, window=window)
+    S = x.shape[1]
+    out, k, v = _gqa_seq(p, cfg, x, window)
     s_buf = cache["k"].shape[1]
     if S >= s_buf:
         if not window and S > s_buf:
@@ -97,7 +115,7 @@ def gqa_prefill(p: Params, cfg, x: torch.Tensor, cache: Params,
         ck, cv = cache["k"].clone(), cache["v"].clone()
         ck[:, :S], cv[:, :S] = k, v
         cache = {"k": ck, "v": cv}
-    return ctx.reshape(B, S, -1) @ p["wo"], cache
+    return out, cache
 
 
 def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Params, pos: int,

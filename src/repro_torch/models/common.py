@@ -1,6 +1,7 @@
-"""Shared model building blocks: plain functions on tensors, with
-parameters in dicts laid out as in ``repro.models.common`` (``x @ W`` with
-``W`` stored ``(in, out)``), so weights carry across as copies.
+"""Shared model building blocks and the loss: plain functions on
+tensors, with parameters in dicts laid out as in ``repro.models.common``
+(``x @ W`` with ``W`` stored ``(in, out)``), so weights carry across as
+copies.
 
 Initial weights come from an explicit ``torch.Generator`` on the target
 device.  Its numbers differ from ``jax.random``'s; tests carry the JAX
@@ -100,3 +101,21 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Mean cross entropy in float32.
+
+    The label's logit is read with a gather where the JAX package
+    contracts with a one-hot (to keep a vocab-sharded axis sharded); on
+    one device the two give the same float32 value.  The JAX function's
+    optional weights and z-loss have no caller there and are left out."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean()

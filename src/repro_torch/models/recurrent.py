@@ -1,14 +1,14 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427):
-the port of ``repro.models.recurrent`` for serving.
+the port of ``repro.models.recurrent`` for serving and training.
 
 Temporal mixing:  y = W_out( GeLU(W_gate x) * RGLRU(conv1d(W_in x)) )
 RG-LRU cell:      r_t = sigmoid(W_a x_t),  i_t = sigmoid(W_x x_t)
                   a_t = exp(-c * softplus(Lambda) * r_t)          (c = 8)
                   h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-The prefill recurrence runs through the ``linear_scan`` op: the
-hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU
-tensor.  ``rglru_forward`` (training) comes with the training slice.
+The prefill and training recurrence runs through the ``linear_scan``
+op: the hand-written CUDA kernel on a CUDA tensor, its plain version on a
+CPU tensor, forward and backward (a reverse scan on the same kernel).
 """
 from __future__ import annotations
 
@@ -89,16 +89,29 @@ def rglru_cache_init(cfg, batch: int, dtype, device: torch.device) -> Params:
                                 device=device)}
 
 
-def rglru_prefill(p: Params, cfg, x: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Params]:
-    """Temporal-mix branch over a prompt, x: (B, S, D); returns the output
-    and the exact final state (h and the last W-1 conv inputs)."""
+def _rglru_seq(p: Params, cfg, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The temporal-mix branch over a sequence, x: (B, S, D); returns the
+    output, the conv input and the recurrence's states (fp32)."""
     u_in = x @ p["w_in"]
     u, _ = _causal_conv(u_in, p["conv_w"])
     a, b = _rglru_coeffs(p, cfg, u)
     hseq = linear_recurrence(a, b)
     gate = gelu(x @ p["w_gate"])
-    y = (gate * hseq.to(x.dtype)) @ p["w_out"]
+    return (gate * hseq.to(x.dtype)) @ p["w_out"], u_in, hseq
+
+
+def rglru_forward(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Full temporal-mix branch for training, x: (B, S, D); no state.
+    Differentiable: the recurrence's backward is the reverse scan."""
+    return _rglru_seq(p, cfg, x)[0]
+
+
+def rglru_prefill(p: Params, cfg, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Params]:
+    """Temporal-mix branch over a prompt, x: (B, S, D); returns the output
+    and the exact final state (h and the last W-1 conv inputs)."""
+    y, u_in, hseq = _rglru_seq(p, cfg, x)
     W, S = cfg.conv_width, u_in.shape[1]
     conv_state = (u_in[:, S - (W - 1):] if S >= W - 1 else
                   F.pad(u_in, (0, 0, W - 1 - S, 0)))

@@ -1,9 +1,10 @@
-"""Model facade: uniform init / prefill / decode across families, the
-port of ``repro.models.registry`` for serving.
+"""Model facade: uniform init / loss / prefill / decode across families,
+the port of ``repro.models.registry``.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``, which
 raises without a card.  The encoder-decoder family comes with a later
-slice of the port; training (``loss``) with the training slice.
+slice of the port; ``loss`` trains the decoder stacks the port serves,
+apart from the MoE family (a later slice).
 """
 from __future__ import annotations
 
@@ -35,6 +36,12 @@ class Model:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return tf_mod.init_lm_params(self.cfg, gen, dev)
+
+    def loss(self, params, batch, mode: str = "scan", remat: bool = False):
+        """(mean next-token cross entropy, metrics) of ``batch`` (tokens
+        and labels (B, S) on the params' device)."""
+        _lm_only(self.cfg)
+        return tf_mod.lm_loss(params, self.cfg, batch, mode, remat)
 
     def init_cache(self, batch: int, s_max: int, device=DEFAULT_DEVICE):
         _lm_only(self.cfg)

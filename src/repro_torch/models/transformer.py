@@ -1,6 +1,7 @@
-"""Decoder-LM assembly for serving: the port of
+"""Decoder-LM assembly for serving and training: the port of
 ``repro.models.transformer`` for the block kinds ``attn`` (with a dense
-or an MoE FFN) and ``rec`` (RG-LRU).
+or an MoE FFN) and ``rec`` (RG-LRU).  Training (``lm_loss``) takes the
+dense FFN only; the MoE family trains in a later slice.
 
 Layers are grouped into repeating "periods" (the block pattern of hybrid
 archs; period 1 for homogeneous stacks).  Parameters keep the JAX
@@ -21,12 +22,13 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
 from .common import (Params, dense_init, dtype_of, embed_init, rmsnorm,
-                     swiglu, swiglu_init)
+                     softmax_xent, swiglu, swiglu_init)
 
 MODES = ("scan", "unroll")
 
@@ -142,6 +144,18 @@ def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
         cache
 
 
+def _block_fwd(p: Params, cfg, kind: str, h: torch.Tensor) -> torch.Tensor:
+    """Training / no-cache forward of one block with a dense FFN."""
+    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        h = h + attn.gqa_forward(p["attn"], cfg, x, _window(cfg))
+    elif kind == "rec":
+        h = h + rec_mod.rglru_forward(p["rec"], cfg, x)
+    else:
+        raise ValueError(kind)
+    return h + swiglu(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+
+
 # ---------------------------------------------------------------------------
 # full-model init
 # ---------------------------------------------------------------------------
@@ -216,6 +230,61 @@ def _run_stack(params: Params, cfg, h: torch.Tensor, cache: Params,
         h, tail_c[key] = step(params["tail"][key], kind, h,
                               cache["tail"][key])
     return h, {"body": body, "tail": tail_c}
+
+
+def _unbind(tree: Any, n: int) -> List[Any]:
+    """The ``n`` period slices of a stacked parameter tree, as views; the
+    backward of ``unbind`` stacks their gradients once per leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][j] for k in tree} for j in range(n)]
+    return list(torch.unbind(tree))
+
+
+def forward_hidden(params: Params, cfg, h: torch.Tensor,
+                   mode: str = "scan", remat: bool = False) -> torch.Tensor:
+    """Runs the full block stack for training.  (The JAX function also
+    returns the MoE aux sum; no MoE layer trains here yet.)
+
+    ``remat`` recomputes each body period ("superblock") in the backward
+    instead of keeping its activations (``torch.utils.checkpoint``, the
+    counterpart of ``jax.checkpoint`` around the scanned superblock); the
+    tail stays outside it, as in the JAX package."""
+    _check_mode(mode)
+    period, full, tail = layer_plan(cfg)
+
+    def superblock(h, pslice):
+        for i, kind in enumerate(period):
+            h = _block_fwd(pslice[f"b{i}"], cfg, kind, h)
+        return h
+
+    for pslice in _unbind(params["body"], full):
+        h = (checkpoint(superblock, h, pslice, use_reentrant=False)
+             if remat else superblock(h, pslice))
+    for i, kind in enumerate(tail):
+        h = _block_fwd(params["tail"][f"t{i}"], cfg, kind, h)
+    return h
+
+
+def lm_loss(params: Params, cfg, batch, mode: str = "scan",
+            remat: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (B, S); returns (loss, {"xent", "moe_aux"}), the
+    JAX package's metrics (its aux term is 0 for a dense stack).
+
+    The MoE family (whose loss adds the router's aux term) trains in a
+    later slice of the port and raises ``NotImplementedError``."""
+    check_supported(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE family comes with a later slice "
+            "of the port; this one trains GQA and RG-LRU stacks")
+    h = forward_hidden(params, cfg, params["embed"][batch["tokens"]], mode,
+                       remat)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    logits = _mask_padded_vocab(cfg, h @ params["lm_head"])
+    loss = softmax_xent(logits, batch["labels"])
+    return loss, {"xent": loss, "moe_aux": torch.zeros((), device=h.device)}
 
 
 def _mask_padded_vocab(cfg, logits: torch.Tensor) -> torch.Tensor:

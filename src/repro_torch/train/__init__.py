@@ -1,1 +1,1 @@
-"""Serving (and, in a later slice, training) loops of the port."""
+"""Training and serving loops of the port."""

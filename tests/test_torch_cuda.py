@@ -48,19 +48,23 @@ import torch
 import dataclasses
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.data import structured_unit
 from repro_torch.kernels._build import (DESIGN_COUNTS, LAUNCH_COUNTS,
                                         reset_launch_counts)
 from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
                                                  flash_attention_cuda,
                                                  flash_attention_design)
-from repro_torch.kernels.linear_scan import (linear_scan_cuda,
+from repro_torch.kernels.linear_scan import (linear_scan, linear_scan_cuda,
                                              linear_scan_design,
                                              linear_scan_ref)
-from repro_torch.kernels.moe_gmm import (expert_matmul_cuda,
+from repro_torch.kernels.moe_gmm import (expert_matmul, expert_matmul_cuda,
                                          expert_matmul_design,
                                          expert_matmul_ref)
 from repro_torch.kernels.we_rounds import kernel, ref
 from repro_torch.models import build_model
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.train.loop import make_grad_step
 
 ROW_AGREE, T_RTOL, C_RTOL, C_ATOL, MEAN_SE = 0.99, 1e-4, 1e-3, 1.0, 6.0
 SEED = (11, 22)
@@ -488,3 +492,89 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernel ops, and the training step
+# ---------------------------------------------------------------------------
+
+def _op_cases(dev):
+    """(name, op, plain version, inputs, kernel launches its backward
+    makes) at the shapes of ``tests/test_kernels.py``'s VJP tests (the
+    expert product at its first forward case), float32."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    a = torch.rand((1, 64, 8), generator=gen, device=dev) * 0.49 + 0.5
+    return [
+        ("linear_scan", linear_scan, linear_scan_ref,
+         (a, draw(1, 64, 8)), 1),
+        ("flash_attention", flash_attention, attention_ref,
+         (draw(1, 64, 2, 16), draw(1, 64, 1, 16), draw(1, 64, 1, 16)), 0),
+        ("expert_matmul", expert_matmul, expert_matmul_ref,
+         (draw(2, 32, 32), draw(2, 32, 32) * 32 ** -0.5), 2),
+    ]
+
+
+@pytest.mark.gpu
+def test_kernel_ops_carry_gradients_on_the_card(cuda_device):
+    """A CUDA output of each op has a ``grad_fn``, and ``backward`` fills
+    ``.grad`` of every input; the scan's backward launches the kernel
+    once more (on the ring), the expert product's twice, attention's
+    none (it recomputes through the plain version)."""
+    for name, op, _, inputs, bwd_launches in _op_cases(cuda_device):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        out = op(*leaves)
+        assert out.grad_fn is not None, name
+        reset_launch_counts()
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS[name] == bwd_launches, name
+        if name == "linear_scan":
+            assert DESIGN_COUNTS[("linear_scan", "ring")] == 1
+        for x in leaves:
+            assert x.grad is not None and x.grad.shape == x.shape, name
+            assert bool(torch.isfinite(x.grad).all()), name
+
+
+@pytest.mark.gpu
+def test_kernel_op_gradients_match_autograd_of_the_plain_version(
+        cuda_device):
+    """sum(out ** 2)'s gradients at 1e-4, as ``tests/test_kernels.py``
+    holds the JAX ops' (the forwards differ by their own tolerances)."""
+    for name, op, plain, inputs, _ in _op_cases(cuda_device):
+        got, want = ([x.clone().requires_grad_() for x in inputs]
+                     for _ in range(2))
+        (op(*got) ** 2).sum().backward()
+        (plain(*want) ** 2).sum().backward()
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x.grad, y.grad, rtol=1e-4,
+                                       atol=1e-4, msg=name)
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_runs_the_kernels_and_matches_cpu(
+        cuda_device):
+    """The recurrentgemma smoke model in float32 (two (rec, rec, attn)
+    periods): one remat gradient step on the card against the same
+    weights on the CPU at rtol and atol 1e-4, as the CPU path is held to
+    JAX.  Launches: attention 2 forward + 2 recomputed; the scan 4
+    forward + 4 recomputed + 4 backward, all on the ring."""
+    cfg = dataclasses.replace(smoke_config(get_config("recurrentgemma-2b")),
+                              dtype="float32")
+    m = build_model(cfg)
+    params = m.init(0, "cpu")
+    batch = structured_unit(0, 2, 40, cfg.vocab_size)
+    step = make_grad_step(m, remat=True)
+    loss_c, grads_c = step(params, batch)
+    reset_launch_counts()
+    loss_g, grads_g = step(_to(params, cuda_device), batch)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention"] == 4
+    assert LAUNCH_COUNTS["linear_scan"] == 12
+    assert DESIGN_COUNTS[("linear_scan", "ring")] == 12
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4, atol=1e-4)
+    for x, y in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-4)

@@ -92,3 +92,36 @@ def test_default_device_raises_without_a_card():
                  lambda: serve.main(["--arch", "recurrentgemma-2b"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_training_runs_with_jax_and_repro_blocked():
+    """The training slice (the differentiable ops, the loss, AdamW, the
+    synthetic data and ``fit``) imports and takes two steps of the
+    recurrentgemma smoke config on the CPU where importing ``jax`` or
+    ``repro`` fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import dataclasses, math\n"
+        "from repro_torch.configs import get_config, smoke_config\n"
+        "from repro_torch.data import UnitStore\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.optim import AdamW, warmup_cosine\n"
+        "from repro_torch.train.loop import fit\n"
+        "cfg = dataclasses.replace(smoke_config(get_config("
+        "'recurrentgemma-2b')), dtype='float32')\n"
+        "m = build_model(cfg)\n"
+        "store = UnitStore(2, 24, cfg.vocab_size, structured=True)\n"
+        "_, state, hist = fit(m, m.init(0, 'cpu'), AdamW(lr=warmup_cosine("
+        "1e-3, 1, 4)), [store.fetch(u) for u in range(2)], log_every=1)\n"
+        "assert state.step == 2 and all(math.isfinite(h['loss']) for h in "
+        "hist)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+        "for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok', hist[-1]['loss'])\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
