@@ -94,19 +94,30 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     ``torch.bmm``), the kernel and ``torch.bmm`` again with the host's
     launch cost and as the host's cost a call, ``flash_attention`` at
     granite's shape as in 9, and the whole path: prefill
-    wall, decode ms per step, tokens/s, peak memory and the device's
-    busy share of one profiled generate;
+    wall, decode ms per step, tokens/s, peak memory, the share of
+    (token, k) pairs a prefill drops and the device's busy share of one
+    profiled generate;
 14. holds each kernel op's gradients on the card against autograd of its
     plain version: float32 at the shapes of ``tests/test_kernels.py``'s
     VJP tests (1e-4), and at the model's shapes on fixed cotangents --
     ``linear_scan`` (1, 2560, 2560) bitwise, ``flash_attention`` (1,
     2560, 10 Q heads, 1 KV head, d 256, window 2048, bf16) bitwise (its
     backward is the plain version's), ``expert_matmul`` at granite's two
-    prefill shapes in bf16 within a relative RMS of 2^-7; every CUDA
+    prefill shapes and at its two training shapes (granite at 1 x 4096
+    tokens, C = 1024; the backward launches then take the four shapes
+    (40, 1024, 512) x (40, 512, 1536), (40, 1536, 1024) x (40, 1024, 512),
+    (40, 1024, 1536) x (40, 1536, 512) and (40, 512, 1024) x (40, 1024,
+    1536)) in bf16 within a relative RMS of 2^-7, and ``flash_attention``
+    at granite's training shape (1, 4096, 24 Q heads, 8 KV heads, d 64,
+    causal): its forward at 2e-2 and each query row within a relative
+    RMS of 2^-7 (``FLASH_ROW_REL_RMS``), its gradients bitwise; every CUDA
     output carries a ``grad_fn`` and each backward's launches are counted
     by design (the scan's one, on the ring; the expert product's two;
     flash's none); then times both training kernels at the training
-    shapes and each op's whole backward;
+    shapes and each op's whole backward, the expert product's two forward
+    and four backward launches at granite's training shapes against their
+    bounds, their plain versions and ``torch.bmm``, and flash at granite's
+    training shape with its plain backward against SDPA ``is_causal``;
 15. one gradient step of recurrentgemma-2b at full width and depth 3 (one
     (rec, rec, attn) period, 1 x 2560 tokens, bf16), with remat off and
     on and the launches counted against the layer plan, then the kernel
@@ -120,14 +131,51 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     and ``linear_scan`` 52 a step, all on the tensor-core / ring designs);
     every loss and grad norm finite and the last loss below the first;
     prints the step wall (warm minimum), tokens/s, peak memory, and one
-    profiled step's busy share and device time by kind.
+    profiled step's busy share and device time by kind;
+17. one gradient step of granite-moe-3b-a800m at full width and depth 3
+    (1 x 4096 tokens, bf16, capacity factor 1.25), with remat off and on
+    and the launches counted against the layer plan (flash 3 and 6, the
+    expert product 27 and 36, all on the tensor-core designs), then the
+    kernel path against the plain path on the card (no kernel may launch
+    there): first the plain path routing for itself, for the share of
+    (token, k) pairs the two route differently (at most 2e-2), then the
+    plain path on the kernel path's routing replayed, with the loss and
+    the router aux sum within 1e-3 relative and each gradient leaf within
+    a relative RMS of 2e-2 (the reasoning above ``MOE_TRAIN_LOSS_RTOL``);
+18. trains granite-moe-3b-a800m at its published width and depth: four
+    ``fit`` steps (AdamW with float32 state, constant lr 1e-4, remat per
+    layer) on one repeated 1 x 4096 structured batch, with the launch
+    counts zeroed just before and read just after (``flash_attention`` 64
+    and ``expert_matmul`` 384 a step, all on the tensor-core designs);
+    every loss, aux sum and grad norm finite and the last loss below the
+    first; prints the share of dropped (token, k) pairs, the step wall
+    (warm minimum), tokens/s, peak memory, the AdamW update's time, one
+    profiled step's busy share and device time by kind, and the device
+    time of the 192 backward expert launches and of flash's 32 plain
+    recomputes; then the same for steps on one 1 x 4096 batch of i.i.d.
+    tokens, whose routing is closer to text's than the structured task's
+    short cycle, with both batches' drop shares at the same weights;
+19. the unit-group gradient engine (``repro_torch.hettrain.
+    ScanGradEngine``) at granite's full width, on units of 1 x 2048
+    i.i.d. tokens (phase 18's optimizer state freed first): two calls
+    on the same ids bitwise equal, ``grad_sum`` of units [3, 0] bitwise
+    equal to that of [0, 3], ``min_bucket=4`` bitwise equal to
+    ``min_bucket=1`` (buckets [4] and [2]), and its counters and the
+    kernel launches (32 flash and 288 expert launches a unit) matching
+    the units summed.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
-path and one for the training path, where each entry also names its
-``backward`` and times it, ``backward_ms``) and, last, ``{"ok": true,
+path and one for each training path; on a training path each entry also
+names its ``backward`` and times it, ``backward_ms``) and, last, ``{"ok": true,
 "device": {...}}``.  Any failed phase exits non-zero with no result line;
 without a CUDA device it exits 1 at once.
+
+    python3 chip_smoke.py --granite-serve
+
+runs only phases 12 and 13's granite serving and prints its times as one
+JSON line: run from the roots of two trees in turn, it compares their
+``src`` on one card.
 """
 from __future__ import annotations
 
@@ -163,6 +211,18 @@ SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_STEPS = "recurrentgemma-2b", 4, \
 # Pallas kernel: the online softmax sums in another order (f32), and the
 # bf16 output keeps 8 significand bits
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# flash at granite's training shape (S = 4096, causal) is also held row by
+# row, since a late row averages ~i/e keys of N(0, 1) values and its
+# outputs, ~0.03, are no larger than FLASH_TOL.  The plain version rounds
+# once, float32 to bf16 at the end; the kernel also rounds the softmax
+# weights to bf16 before its P V product.  A bf16 rounding errs by at most
+# 2^-9 to 2^-8 of the value (RMS ~1.6e-3 of it), and a row's output sums
+# weighted values of random sign, so each row's relative RMS difference
+# (over its 24 x 64 elements) is some 2e-3 to 4e-3.  2^-7 allows twice
+# that.  A row rescaled by 1 + e reads e, and a softmax scale off by e
+# moves a row's weights by e x its N(0, 1) scores, so its output by ~e:
+# a 1% error fails (phase 14 prints what a scale 1% off reads)
+FLASH_ROW_REL_RMS = 2.0 ** -7
 # served logits against the teacher-forced plain path, both bf16: every
 # matrix product and the decode attention round to bf16 at other places
 # in the two (decode one token at a time against a 3031-token forward).
@@ -192,9 +252,13 @@ SLEEP_CYCLES = 2_000_000        # ~1 ms of device time at the H100's clock
 TRAIN_ARCH, TRAIN_S, TRAIN_STEPS, TRAIN_LR = "recurrentgemma-2b", 2560, 4, \
     1e-4
 TRAIN_PATH = f"train-{TRAIN_ARCH}"
+MOE_TRAIN_B, MOE_TRAIN_S = 1, 4096       # the Granite 3.0 context length
+MOE_TRAIN_PATH = f"train-{MOE_ARCH}"
+ENGINE_UNIT = (1, 2048)                  # phase 19: rows, tokens a unit
 REPLACES = {"linear_scan": "src/repro/kernels/linear_scan/kernel.py:22",
             "flash_attention":
-            "src/repro/kernels/flash_attention/kernel.py:30"}
+            "src/repro/kernels/flash_attention/kernel.py:30",
+            "expert_matmul": "src/repro/kernels/moe_gmm/kernel.py:20"}
 BACKWARDS = {
     "linear_scan": "LinearScan.backward, src/repro_torch/kernels/"
                    "linear_scan/ops.py: the same kernel on reversed inputs "
@@ -203,7 +267,12 @@ BACKWARDS = {
     "flash_attention": "FlashAttention.backward, src/repro_torch/kernels/"
                        "flash_attention/ops.py: attention_ref recomputed "
                        "and differentiated, no kernel (as "
-                       "src/repro/kernels/flash_attention/ops.py:32-38)"}
+                       "src/repro/kernels/flash_attention/ops.py:32-38)",
+    "expert_matmul": "ExpertMatmul.backward, src/repro_torch/kernels/"
+                     "moe_gmm/ops.py: two more launches of the same kernel, "
+                     "dX = dY W^T and dW = X^T dY on transposed contiguous "
+                     "operands (XLA differentiates the einsums of "
+                     "src/repro/models/moe.py:115-118)"}
 # each op's gradients against autograd of its plain version.  float32 at
 # the shapes of tests/test_kernels.py's VJP tests, loss sum(out ** 2): 1e-4,
 # as those tests hold the JAX ops (the forwards differ within their own
@@ -225,9 +294,28 @@ GMM_GRAD_REL_RMS = 2.0 ** -7
 # the embedding, whose rows each hold one position's cotangent
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_REL_RMS = 2e-2
+# one gradient step of granite at full width and depth 3, kernel path
+# against plain path on the card.  The router reads a hidden state that
+# bf16 roundings at other places perturb, so a near-tied 8th and 9th
+# expert can swap (phase 12), and a swap into a full expert moves which
+# pair is dropped: a routing swap is a different step, not a rounding.  So
+# the plain path replays the kernel path's routing (its experts, slots and
+# kept pairs; the weights and the aux loss from the plain path's own router
+# logits), and the two differ only by bf16 roundings at other places:
+# flash's forward (about a bf16 ulp on some elements, as in phase 15) and
+# the expert products (phase 11: a layer's output within 1e-3 relative
+# RMS; phase 14: their gradients within ~1e-4).  These keep the loss and
+# the aux sum within far less than 1e-3 of themselves and each gradient
+# leaf within phase 15's 2e-2.  The share of pairs routed differently when
+# the plain path routes for itself is printed; above 2e-2 it is not
+# rounding: fail.
+MOE_TRAIN_LOSS_RTOL = 1e-3
+MOE_AUX_RTOL = 1e-3
+MOE_FLIP_MAX = 2e-2
 # device kernels by kind, for a profiled step's breakdown (the first group
 # whose word is in the kernel's name)
-DEVICE_GROUPS = (("port kernels", ("linear_scan", "flash_")),
+DEVICE_GROUPS = (("port kernels", ("linear_scan", "flash_",
+                                    "expert_matmul")),
                  ("matrix products", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("copies and fills", ("copy", "Memcpy", "Memset", "fill")),
                  ("reductions", ("reduce",)),
@@ -382,10 +470,13 @@ def flash_bound(q, k, window: int):
         "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
 
 
-def profile_generate(torch, generate, label: str = "generate") -> list:
+def profile_generate(torch, generate, label: str = "generate",
+                     nodes: tuple = ()):
     """One profiled run of ``generate``: wall, the device's busy share, and
     the ten device kernels that took the most time.  Returns the device
-    events (kernels, copies) with their device time."""
+    events (kernels, copies) with their device time, and {node: (calls,
+    device ms of the kernels launched inside it)} for each autograd node
+    named in ``nodes`` (such as ``"FlashAttentionBackward"``)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -393,9 +484,16 @@ def profile_generate(torch, generate, label: str = "generate") -> list:
         generate()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    dev_events = [e for e in averages
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0]
+    inside = {}
+    for node in nodes:
+        found = [e for e in averages if e.key.endswith(node)
+                 and "evaluate_function" in e.key]
+        inside[node] = (sum(e.count for e in found),
+                        sum(e.device_time_total for e in found) / 1e3)
     dev_us = sum(e.self_device_time_total for e in dev_events)
     if dev_us > 0:
         print(f"profiled {label}: wall {prof_wall * 1e3:.3f} ms, device "
@@ -409,7 +507,20 @@ def profile_generate(torch, generate, label: str = "generate") -> list:
     else:
         print(f"profiled {label}: the profiler recorded no device time "
               f"(device busy share not measured)")
-    return dev_events
+    return dev_events, inside
+
+
+def print_device_kinds(events) -> None:
+    """A profiled run's device time by kind (``DEVICE_GROUPS``)."""
+    groups = {}
+    for e in events:
+        group = next((g for g, words in DEVICE_GROUPS
+                      if any(w in e.key for w in words)), "other")
+        n, us = groups.get(group, (0, 0.0))
+        groups[group] = (n + e.count, us + e.self_device_time_total)
+    print("  its device time by kind: " + "; ".join(
+        f"{g} {us / 1e3:.3f} ms (x{n})" for g, (n, us) in sorted(
+            groups.items(), key=lambda kv: -kv[1][1])))
 
 
 def leaves(tree):
@@ -436,11 +547,12 @@ def rel_rms(got, want, dims=None):
     return d.mean(dims).sqrt() / w.mean(dims).sqrt()
 
 
-def check_flash(torch, draw, case):
+def check_flash(torch, draw, case, row_rms=None):
     """Hold ``flash_attention_cuda`` against ``attention_ref`` on one
     case (B, Sq, Sk, Hq, Hkv, d, causal, window, dtype name) of inputs
-    from ``draw``, at ``FLASH_TOL``.  Returns (ok, max abs error, label,
-    (q, k, v))."""
+    from ``draw``, at ``FLASH_TOL`` and, given ``row_rms``, each query
+    row's relative RMS difference within it.  Returns (ok, max abs error,
+    label, (q, k, v))."""
     from repro_torch.kernels._build import DESIGN_COUNTS
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_cuda,
@@ -459,10 +571,21 @@ def check_flash(torch, draw, case):
     tol = FLASH_TOL[dt]
     ok = bool(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol))
     ok = ok and took == 1
+    rows = ""
+    if row_rms is not None:
+        worst = float(rel_rms(got, want, (2, 3)).max())
+        # what the check reads of a softmax scale 1% off, for scale
+        off = float(rel_rms(attention_ref(q, k, v, causal, window,
+                                          1.01 * d ** -0.5), want,
+                            (2, 3)).max())
+        ok = ok and worst <= row_rms
+        rows = f", worst row's relative RMS {worst:.3e} (limit " \
+            f"{row_rms:.3e}; the plain version with its scale 1% off " \
+            f"reads {off:.3e})"
     label = f"({B},{Sq},{Sk},{Hq},{Hkv},{d}) causal={causal} " \
         f"window={window} {dt}"
     print(f"  flash_attention {label}: {'ok' if ok else 'FAIL'} "
-          f"max_abs_err={err:.3e} (tol {tol}), design {design} "
+          f"max_abs_err={err:.3e} (tol {tol}){rows}, design {design} "
           f"({took} launch)")
     return ok, err, label, (q, k, v)
 
@@ -792,6 +915,79 @@ def serve_phases(torch, dev):
     ]
 
 
+def time_serve(torch, model, params, prompt, generate, dev, reps: int):
+    """Warm minimum of ``reps`` of a prefill of ``prompt`` and of a whole
+    ``generate`` of ``MOE_STEPS`` tokens (host clock): (prefill s,
+    generate s, decode ms a step)."""
+    prefill_s = gen_s = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": prompt},
+                      model.init_cache(prompt.shape[0],
+                                       prompt.shape[1] + MOE_STEPS, dev))
+        torch.cuda.synchronize()
+        prefill_s = min(prefill_s, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        gen_s = min(gen_s, time.perf_counter() - t0)
+    return prefill_s, gen_s, (gen_s - prefill_s) / (MOE_STEPS - 1) * 1e3
+
+
+def prefill_dropped(torch, model, params, prompt, dev) -> float:
+    """Share of (token, k) pairs one prefill of ``prompt`` drops, over
+    its MoE layers."""
+    with torch.no_grad(), recorded_routes(torch) as routes:
+        model.prefill(params, {"tokens": prompt},
+                      model.init_cache(prompt.shape[0],
+                                       prompt.shape[1] + MOE_STEPS, dev))
+    return dropped_share(routes)
+
+
+def granite_serve(torch, dev) -> None:
+    """``python3 chip_smoke.py --granite-serve``: phases 12 and 13's
+    serving of granite-moe-3b-a800m alone, to compare two trees' ``src``
+    in one call (run the script from each tree's root in turn).  Builds
+    flash and the expert product, serves phase 12's requests once with
+    the launches counted, and prints one JSON line: the share of (token,
+    k) pairs a prefill drops, and the prefill, generate and decode times
+    (warm min of 3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.moe_gmm import kernel as gk
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import greedy_generate
+
+    _build.build_all([fk.LIBRARY, gk.LIBRARY])
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=dev)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_B, MOE_PROMPT))).to(dev)
+
+    def generate():
+        return greedy_generate(model, params, {"tokens": prompt},
+                               model.init_cache(MOE_B, MOE_PROMPT + MOE_STEPS,
+                                                dev), MOE_STEPS)
+
+    _build.reset_launch_counts()
+    generate()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}
+    want = {"flash_attention": cfg.n_layers,
+            "expert_matmul": 3 * cfg.n_layers * MOE_STEPS}
+    if launches != want:
+        fail(f"granite serving launched {launches}, not {want}")
+    prefill_s, gen_s, decode_ms = time_serve(torch, model, params, prompt,
+                                             generate, dev, 3)
+    print(json.dumps({"granite_serve": {
+        "src": str(SRC), "launches": launches,
+        "dropped": prefill_dropped(torch, model, params, prompt, dev),
+        "prefill_ms": prefill_s * 1e3, "generate_ms": gen_s * 1e3,
+        "decode_ms": decode_ms}}))
+
+
 def moe_phases(torch, dev):
     """Phases 10-13; returns the JSON entries of expert_matmul and of
     flash_attention at granite's shape."""
@@ -1039,24 +1235,15 @@ def moe_phases(torch, dev):
                                                      _window(cfg))
     del flash_qkv
 
-    prefill_s = gen_s = float("inf")
-    for _ in range(2):
-        t0 = time.perf_counter()
-        model.prefill(params, {"tokens": prompt},
-                      model.init_cache(MOE_B, s_max, dev))
-        torch.cuda.synchronize()
-        prefill_s = min(prefill_s, time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        generate()
-        torch.cuda.synchronize()
-        gen_s = min(gen_s, time.perf_counter() - t0)
-    decode_ms = (gen_s - prefill_s) / (MOE_STEPS - 1) * 1e3
+    prefill_s, gen_s, decode_ms = time_serve(torch, model, params, prompt,
+                                             generate, dev, 2)
     print(f"serve {MOE_ARCH} {MOE_B} x {MOE_PROMPT} + {MOE_STEPS} (warm min "
           f"of 2): prefill {prefill_s * 1e3:.3f} ms "
           f"({MOE_B * MOE_PROMPT / prefill_s:.1f} prompt tok/s), decode "
           f"{decode_ms:.3f} ms per step, generate {gen_s * 1e3:.3f} ms "
           f"({MOE_B * MOE_STEPS / gen_s:.2f} new tok/s); peak memory "
-          f"{peak_gb:.3f} GB")
+          f"{peak_gb:.3f} GB; (token, k) pairs a prefill drops "
+          f"{prefill_dropped(torch, model, params, prompt, dev):.6f}")
     profile_generate(torch, generate)
     k_ms, p_ms, l_ms, bound, by = times["prefill gate/up"]
     return [
@@ -1104,28 +1291,39 @@ def backward_of(torch, op, inputs, cot=None):
 def launches_per_step(cfg, remat: bool) -> dict:
     """The kernel launches of one gradient step, from the layer plan: a
     flash forward per attention layer, a scan forward and a scan backward
-    per RG-LRU layer, and with ``remat`` each body period's forward once
-    more inside the backward (the tail sits outside the checkpoint)."""
+    per RG-LRU layer, three expert products forward and two launches each
+    backward per MoE layer (an attention layer of an MoE config), and with
+    ``remat`` each body period's forward once more inside the backward
+    (the tail sits outside the checkpoint).  Kernels the step does not
+    launch are left out."""
     from repro_torch.models.transformer import layer_plan
     period, full, tail = layer_plan(cfg)
     body = {k: full * period.count(k) for k in ("attn", "rec")}
     n = {k: body[k] + tail.count(k) for k in ("attn", "rec")}
     again = body if remat else {"attn": 0, "rec": 0}
-    return {"flash_attention": n["attn"] + again["attn"],
-            "linear_scan": 2 * n["rec"] + again["rec"]}
+    moe = cfg.is_moe
+    want = {"flash_attention": n["attn"] + again["attn"],
+            "linear_scan": 2 * n["rec"] + again["rec"],
+            "expert_matmul": moe * (9 * n["attn"] + 3 * again["attn"])}
+    return {k: v for k, v in want.items() if v}
 
 
 def grad_phase(torch, dev, cfg):
     """Phase 14.  Returns {kernel: (max abs error, kernel ms, plain ms,
     bound ms, bound_by, library ms, whole backward ms)} of the two kernels
-    of the training path, at its shapes."""
+    of recurrentgemma's training path, at its shapes, and of
+    ``expert_matmul`` and ``flash_attention granite`` at granite's (the
+    expert product's also with its launch shapes' times and a step's
+    backward launches' time)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     from repro_torch.kernels.linear_scan import (linear_scan,
                                                  linear_scan_cuda,
                                                  linear_scan_ref)
-    from repro_torch.kernels.moe_gmm import expert_matmul, expert_matmul_ref
+    from repro_torch.kernels.moe_gmm import (expert_matmul,
+                                             expert_matmul_cuda,
+                                             expert_matmul_ref)
     from repro_torch.models import moe as moe_mod
     gen = torch.Generator(device=dev).manual_seed(14)
 
@@ -1168,17 +1366,34 @@ def grad_phase(torch, dev, cfg):
          draw(qkv[0].shape, torch.bfloat16), "bitwise", {}),
     ]
     moe = get_config(MOE_ARCH)
-    E, C = moe.n_experts, moe_mod._capacity(MOE_B * MOE_PROMPT, moe)
-    for label, (d_in, d_out) in (("gate/up", (moe.d_model, moe.d_ff)),
-                                 ("down", (moe.d_ff, moe.d_model))):
-        cases.append((
-            f"expert_matmul bf16 prefill {label} ({E}, {C}, {d_in}, "
-            f"{d_out})", expert_matmul, expert_matmul_ref,
-            (draw((E, C, d_in), torch.bfloat16),
-             draw((E, d_in, d_out), torch.bfloat16, d_in ** -0.5)),
-            draw((E, C, d_out), torch.bfloat16), ("rms", GMM_GRAD_REL_RMS),
-            {("expert_matmul", "tc"): 2}))
-    failed, errs = [], {}
+    E, D, Ff = moe.n_experts, moe.d_model, moe.d_ff
+    C = moe_mod._capacity(MOE_B * MOE_PROMPT, moe)
+    C_tr = moe_mod._capacity(MOE_TRAIN_B * MOE_TRAIN_S, moe)
+    train_ops = {}
+    for where, c in (("prefill", C), ("train", C_tr)):
+        for label, (d_in, d_out) in (("gate/up", (D, Ff)),
+                                     ("down", (Ff, D))):
+            inputs = (draw((E, c, d_in), torch.bfloat16),
+                      draw((E, d_in, d_out), torch.bfloat16, d_in ** -0.5))
+            if where == "train":
+                train_ops[label] = inputs
+            cases.append((
+                f"expert_matmul bf16 {where} {label} ({E}, {c}, {d_in}, "
+                f"{d_out})", expert_matmul, expert_matmul_ref, inputs,
+                draw((E, c, d_out), torch.bfloat16),
+                ("rms", GMM_GRAD_REL_RMS), {("expert_matmul", "tc"): 2}))
+    # flash at granite's training shape: the forward against its plain
+    # version as in phase 10 and row by row (FLASH_ROW_REL_RMS), and its
+    # gradients (the plain version's) bitwise
+    g_case = (MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_S, moe.n_heads,
+              moe.n_kv_heads, moe.hd, True, 0, "bfloat16")
+    g_ok, g_err, g_label, g_qkv = check_flash(torch, draw, g_case,
+                                              FLASH_ROW_REL_RMS)
+    cases.append((f"flash_attention bf16 {g_label}", flash_attention,
+                  attention_ref, g_qkv, draw(g_qkv[0].shape, torch.bfloat16),
+                  "bitwise", {}))
+    failed, errs = ([] if g_ok else [f"flash_attention {g_label}"]), {}
+    train_err = 0.0
     for label, op, plain, inputs, cot, tol, want_designs in cases:
         got, out, launched, designs = backward_of(torch, op, inputs, cot)
         want, _, plain_launched, _ = backward_of(torch, plain, inputs, cot)
@@ -1202,6 +1417,8 @@ def grad_phase(torch, dev, cfg):
             and all(bool(torch.isfinite(g).all()) for g in got)
         name = label.split()[0]
         errs[name] = max(errs.get(name, 0.0), err)
+        if " train " in label:
+            train_err = max(train_err, err)
         print(f"  grad {label}: {'ok' if ok else 'FAIL'} max_abs_err "
               f"{err:.3e} ({told}); the backward's launches "
               f"{designs or 'none'}; output grad_fn "
@@ -1241,11 +1458,75 @@ def grad_phase(torch, dev, cfg):
     print(f"flash_attention backward at {tuple(qkv[0].shape)} bf16, window "
           f"{cfg.window} (the plain version recomputed and differentiated): "
           f"{bwd_ms['flash_attention']:.4f} ms")
-    return {"linear_scan": (errs["linear_scan"], s_ms, s_plain, s_bound,
-                            "bytes", None, bwd_ms["linear_scan"]),
-            "flash_attention": (errs["flash_attention"], f_ms, f_plain,
-                                f_bound, f_by, f_lib,
-                                bwd_ms["flash_attention"])}
+    del scan_in, qkv, a, b
+    times = {"linear_scan": (errs["linear_scan"], s_ms, s_plain, s_bound,
+                             "bytes", None, bwd_ms["linear_scan"]),
+             "flash_attention": (errs["flash_attention"], f_ms, f_plain,
+                                 f_bound, f_by, f_lib,
+                                 bwd_ms["flash_attention"])}
+
+    # granite's training shapes (1 x 4096 tokens, C = 1024): the expert
+    # product's two forward and four backward launch shapes, each against
+    # its bound, its plain version and torch.bmm; each product's whole
+    # backward (two launches and two transposed copies); flash with its
+    # plain backward against SDPA is_causal
+    launch_shapes = {
+        "forward gate/up": (E, C_tr, D, Ff), "forward down": (E, C_tr, Ff, D),
+        "backward dX gate/up": (E, C_tr, Ff, D),
+        "backward dW gate/up": (E, D, C_tr, Ff),
+        "backward dX down": (E, C_tr, D, Ff),
+        "backward dW down": (E, Ff, C_tr, D)}
+    gmm_times = {}
+    for label, (e, c, d_in, d_out) in launch_shapes.items():
+        x = draw((e, c, d_in), torch.bfloat16)
+        w = draw((e, d_in, d_out), torch.bfloat16, d_in ** -0.5)
+        k_ms = cuda_ms(torch, lambda: expert_matmul_cuda(x, w))
+        p_ms = cuda_ms(torch, lambda: expert_matmul_ref(x, w))
+        l_ms = cuda_ms(torch, lambda: torch.bmm(x, w))
+        bound, by, flops, nbytes = gmm_bound(e, c, d_in, d_out, 2)
+        gmm_times[label] = (k_ms, p_ms, l_ms, bound, by)
+        print(f"expert_matmul {label} at granite's training shape "
+              f"({e}, {c}, {d_in})x({e}, {d_in}, {d_out}) bf16: kernel "
+              f"{k_ms:.4f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s, "
+              f"{bound / k_ms:.3f} of the bound), plain {p_ms:.4f} ms, "
+              f"torch.bmm {l_ms:.4f} ms; kernel / torch.bmm "
+              f"{k_ms / l_ms:.3f}; bound {bound:.4f} ms by {by} "
+              f"({flops:.4e} flops, {nbytes} bytes)")
+        del x, w
+    product_bwd = {}
+    for label, inputs in train_ops.items():
+        leaves = [x.detach().clone().requires_grad_() for x in inputs]
+        out = expert_matmul(*leaves)
+        cot = torch.ones_like(out)
+        product_bwd[label] = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, cot, retain_graph=True))
+        del leaves, out, cot
+    layer_bwd = 2 * product_bwd["gate/up"] + product_bwd["down"]
+    step_bwd = sum(n * gmm_times[f"backward {k}"][0] for k, n in (
+        ("dX gate/up", 2), ("dW gate/up", 2), ("dX down", 1),
+        ("dW down", 1))) * moe.n_layers
+    print(f"expert_matmul whole backward at granite's training shapes: "
+          f"gate/up {product_bwd['gate/up']:.4f} ms, down "
+          f"{product_bwd['down']:.4f} ms, a layer's three products "
+          f"{layer_bwd:.4f} ms; a step's {6 * moe.n_layers} backward "
+          f"launches {step_bwd:.3f} ms at these times")
+    del train_ops
+    gf_ms, gf_plain, gf_lib, gf_bound, gf_by = time_flash(torch, g_qkv, 0)
+    leaves = [x.detach().clone().requires_grad_() for x in g_qkv]
+    out = flash_attention(*leaves, True, 0)
+    cot = torch.ones_like(out)
+    gf_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, cot, retain_graph=True))
+    print(f"flash_attention backward at {tuple(g_qkv[0].shape)} bf16, causal "
+          f"(the plain version recomputed and differentiated): "
+          f"{gf_bwd:.4f} ms")
+    del leaves, out, cot, g_qkv
+    k_ms, p_ms, l_ms, bound, by = gmm_times["forward gate/up"]
+    times["expert_matmul"] = (train_err, k_ms, p_ms, bound, by, l_ms,
+                              layer_bwd, gmm_times, step_bwd)
+    times["flash_attention granite"] = (g_err, gf_ms, gf_plain, gf_bound,
+                                        gf_by, gf_lib, gf_bwd)
+    return times
 
 
 def train_phases(torch, dev):
@@ -1368,20 +1649,12 @@ def train_phases(torch, dev):
     print(f"  the step's halves (warm min of 2): gradient {g_ms:.3f} ms, "
           f"AdamW update (its clip-norm pass included) {u_ms:.3f} ms")
     step = make_train_step(model, opt, remat=True)
-    events = profile_generate(torch, lambda: step(params, state, batch),
-                              "train step")
+    events, _ = profile_generate(torch, lambda: step(params, state, batch),
+                                 "train step")
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"  the profiled step's device time over the unprofiled warm "
           f"step: {100 * busy_ms / (warm_s * 1e3):.2f}%")
-    groups = {}
-    for e in events:
-        group = next((g for g, words in DEVICE_GROUPS
-                      if any(w in e.key for w in words)), "other")
-        n, us = groups.get(group, (0, 0.0))
-        groups[group] = (n + e.count, us + e.self_device_time_total)
-    print("  its device time by kind: " + "; ".join(
-        f"{g} {us / 1e3:.3f} ms (x{n})" for g, (n, us) in sorted(
-            groups.items(), key=lambda kv: -kv[1][1])))
+    print_device_kinds(events)
     scan = [e for e in events if "linear_scan" in e.key]
     scan_n = sum(e.count for e in scan)
     scan_us = sum(e.self_device_time_total for e in scan)
@@ -1407,7 +1680,395 @@ def train_phases(torch, dev):
             "launches": launches[name], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib, "backward_ms": bwd})
-    return entries
+    torch.cuda.empty_cache()
+    return entries + moe_train_phases(torch, dev, times)
+
+
+@contextlib.contextmanager
+def recorded_routes(torch):
+    """Record each MoE layer's routing as the model runs: a list of (map,
+    top-1 expert, (top_e, slot, keep)) per layer call, the map (T, E)
+    int8, 0 where the expert was not among the token's top k, 1 where its
+    pair was dropped and 2 where it was kept.  A remat's recompute appends
+    its layers again."""
+    from repro_torch.models import moe as moe_mod
+    route, seen = moe_mod.route, []
+
+    def recording(p, cfg, x):
+        out = route(p, cfg, x)
+        with torch.no_grad():
+            _, top_e, _ = moe_mod._router(p, cfg, x.reshape(-1, x.shape[-1]))
+            kept = 1 + out[2].reshape(top_e.shape).to(torch.int8)
+            m = torch.zeros((top_e.shape[0], cfg.n_experts),
+                            dtype=torch.int8, device=x.device)
+            seen.append((m.scatter_(1, top_e, kept), top_e[:, 0].clone(),
+                         (top_e, out[1].clone(), out[2].clone())))
+        return out
+
+    moe_mod.route = recording
+    try:
+        yield seen
+    finally:
+        moe_mod.route = route
+
+
+@contextlib.contextmanager
+def pinned_routes(torch, recorded):
+    """Replay ``recorded_routes``' records in order, one per MoE layer
+    call: the call takes the record's experts, slots and kept pairs, and
+    its weights and aux loss from its own float32 router logits as
+    ``moe._router`` makes them (the recorded experts' probabilities,
+    renormalised; the Switch term over the recorded top-1 experts), so
+    the gradients reach the router as on an unpinned path.  Yields the
+    records replayed so far."""
+    from repro_torch.models import moe as moe_mod
+    route, records, used = moe_mod.route, iter(recorded), []
+
+    def pinned(p, cfg, x):
+        used.append(next(records))
+        top_e, slot, keep = used[-1][2]
+        E = cfg.n_experts
+        xf = x.reshape(-1, x.shape[-1])
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        top_p = probs.gather(1, top_e)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        ce = torch.nn.functional.one_hot(top_e[:, 0], E).float().mean(0)
+        aux = E * torch.sum(probs.mean(0) * ce)
+        return top_p, slot, keep, moe_mod._capacity(xf.shape[0], cfg), aux
+
+    moe_mod.route = pinned
+    try:
+        yield used
+    finally:
+        moe_mod.route = route
+
+
+def route_differences(got, want):
+    """(share of (token, k) pairs routed differently -- another expert, or
+    kept on one side and dropped on the other --, share of tokens whose
+    top-1 expert differs), over the layers of two ``recorded_routes``."""
+    pairs = differ = top1 = tokens = 0
+    for (mg, tg, _), (mw, tw, _) in zip(got, want):
+        chosen = mg > 0
+        pairs += int(chosen.sum())
+        differ += int((chosen & (mg != mw)).sum())
+        top1 += int((tg != tw).sum())
+        tokens += tg.numel()
+    return differ / pairs, top1 / tokens
+
+
+def dropped_share(routes) -> float:
+    """Share of the recorded (token, k) pairs that were dropped."""
+    return sum(int((m == 1).sum()) for m, _, _ in routes) / \
+        sum(int((m > 0).sum()) for m, _, _ in routes)
+
+
+def moe_train_phases(torch, dev, times):
+    """Phases 17-19; returns granite's training path's JSON entries."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import UnitStore, structured_unit, unit_tokens
+    from repro_torch.hettrain import ScanGradEngine, tree_bytes
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import _capacity
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train.loop import (_grad_of, _on_device, fit,
+                                        make_grad_step, make_train_step)
+
+    cfg = get_config(MOE_ARCH)
+    T, K = MOE_TRAIN_B * MOE_TRAIN_S, cfg.experts_per_token
+    batch = structured_unit(0, MOE_TRAIN_B, MOE_TRAIN_S, cfg.vocab_size)
+    on_card = _on_device(batch, dev)
+
+    def tc_only(want):
+        return {(k, "tc"): v for k, v in want.items()}
+
+    # 17. one gradient step at full width and depth 3, kernel against plain
+    cfg3 = dataclasses.replace(cfg, n_layers=3)
+    model3 = build_model(cfg3)
+    params3 = model3.init(seed=0, device=dev)
+    for remat in (False, True):
+        _build.reset_launch_counts()
+        with recorded_routes(torch) as routes_k:
+            loss_k, metrics_k, grads_k = _grad_of(model3, params3, on_card,
+                                                  "scan", remat)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}
+        designs = {k: v for k, v in _build.DESIGN_COUNTS.items() if v}
+        want = launches_per_step(cfg3, remat)
+        print(f"depth-3 {MOE_ARCH} gradient step ({MOE_TRAIN_B} x "
+              f"{MOE_TRAIN_S}, bf16, capacity factor {cfg.capacity_factor}),"
+              f" remat {remat}: launches {launches} (want {want}); designs "
+              f"{designs}; (token, k) pairs dropped "
+              f"{dropped_share(routes_k[:cfg3.n_layers]):.6f}")
+        if launches != want or designs != tc_only(want):
+            fail(f"depth-3 {MOE_ARCH} step launches {launches}, designs "
+                 f"{designs}; want {want}, all on tc")
+    aux_k = float(metrics_k["moe_aux"])
+    finite = bool(torch.isfinite(loss_k)) and np.isfinite(aux_k) and all(
+        bool(torch.isfinite(g).all()) for g in leaves(grads_k))
+    n = cfg3.n_layers
+
+    def against_plain(label, pin):
+        """The plain path (remat on) against the kernel path: (loss
+        relative, aux relative, worst leaf, its relative RMS, the plain
+        path's routes or, with ``pin``, the records it replayed)."""
+        _build.reset_launch_counts()
+        with plain_kernels(), (pinned_routes(torch, routes_k) if pin else
+                               recorded_routes(torch)) as seen:
+            loss_p, metrics_p, grads_p = _grad_of(model3, params3, on_card,
+                                                  "scan", True)
+        torch.cuda.synchronize()
+        if any(_build.LAUNCH_COUNTS.values()):
+            fail(f"the plain training path launched kernels: "
+                 f"{_build.LAUNCH_COUNTS}")
+        loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        aux_p = float(metrics_p["moe_aux"])
+        aux_rel = abs(aux_k - aux_p) / abs(aux_p)
+        worst, worst_rms, rows = "", -1.0, []
+        for (path, g), (_, w) in zip(named_leaves(grads_k),
+                                     named_leaves(grads_p)):
+            r = rel_rms(g, w)
+            rows.append(f"{path} {r:.3e}")
+            if not r <= worst_rms:          # a NaN is the worst
+                worst, worst_rms = path, r
+        print(f"  kernel path against the plain path {label} (remat on): "
+              f"loss {float(loss_k):.6f} vs {float(loss_p):.6f}, relative "
+              f"{loss_rel:.3e}; xent {float(metrics_k['xent']):.6f} vs "
+              f"{float(metrics_p['xent']):.6f}; moe_aux {aux_k:.6f} vs "
+              f"{aux_p:.6f}, relative {aux_rel:.3e}; worst gradient leaf "
+              f"{worst}: relative RMS {worst_rms:.3e}; relative RMS per "
+              f"leaf: " + "; ".join(rows))
+        return loss_rel, aux_rel, worst, worst_rms, seen
+
+    # the plain path routing for itself: how often rounding swaps a pair
+    # (a reading, and a limit on it), then the held comparison with the
+    # kernel path's routing replayed
+    *_, routes_p = against_plain("routing for itself", False)
+    flip, top1 = route_differences(routes_k[:n], routes_p[:n])
+    print(f"  (token, k) pairs routed differently by the two paths "
+          f"{flip:.6f} (limit {MOE_FLIP_MAX}), tokens with another top-1 "
+          f"expert {top1:.6f}")
+    loss_rel, aux_rel, worst, worst_rms, replayed = against_plain(
+        "on the kernel path's routing", True)
+    print(f"  with the routing replayed ({len(replayed)} of the kernel "
+          f"path's {len(routes_k)} layer calls): loss relative "
+          f"{loss_rel:.3e} (limit {MOE_TRAIN_LOSS_RTOL}), moe_aux relative "
+          f"{aux_rel:.3e} (limit {MOE_AUX_RTOL}), worst gradient leaf "
+          f"{worst} {worst_rms:.3e} (limit {TRAIN_GRAD_REL_RMS})")
+    if not finite or not flip <= MOE_FLIP_MAX \
+            or len(replayed) != len(routes_k) \
+            or not loss_rel <= MOE_TRAIN_LOSS_RTOL \
+            or not aux_rel <= MOE_AUX_RTOL \
+            or not worst_rms <= TRAIN_GRAD_REL_RMS:
+        fail(f"the depth-3 {MOE_ARCH} training step's kernel path does not "
+             f"agree with its plain path")
+    del params3, grads_k, model3, routes_k, routes_p, replayed
+    torch.cuda.empty_cache()
+
+    # 18. the slice: granite-moe-3b-a800m at full width and depth, four fit
+    # steps on one repeated batch at a constant rate
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params, n_bytes = describe_params(params)
+    print(f"train path: {MOE_ARCH} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{K} d_ff {cfg.d_ff}, "
+          f"capacity factor {cfg.capacity_factor}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype} weights, float32 router ({n_params:.4e} parameters, "
+          f"{n_bytes / 1e9:.3f} GB, drawn in {time.perf_counter() - t0:.2f} "
+          f"s), float32 AdamW state, remat per layer; batch {MOE_TRAIN_B} x "
+          f"{MOE_TRAIN_S} structured tokens, lr {TRAIN_LR} constant")
+    with torch.no_grad(), recorded_routes(torch) as routes:
+        model.loss(params, on_card)
+    print(f"  (token, k) pairs dropped at the first step's weights, C "
+          f"{_capacity(T, cfg)}: "
+          f"{dropped_share(routes):.6f} over the {len(routes)} layers "
+          f"(most in one layer "
+          f"{max(dropped_share([r]) for r in routes):.6f})")
+    del routes
+    opt = AdamW(lr=constant(TRAIN_LR))
+    per_step = launches_per_step(cfg, True)
+    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in _build.LAUNCH_COUNTS}
+    stamps = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, hist = fit(
+        model, params, opt, [batch] * TRAIN_STEPS, remat=True, log_every=1,
+        callback=lambda i, m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCH_COUNTS)
+    fit_launches = dict(launches)
+    designs = {k: v for k, v in _build.DESIGN_COUNTS.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_s = np.diff([t0] + stamps)
+    warm_s = float(step_s[1:].min())
+    losses = [h["loss"] for h in hist]
+    auxes = [h["moe_aux"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    print(f"  fit: losses {losses}; moe_aux {auxes}; grad norms {norms}; "
+          f"step wall {[round(float(x) * 1e3, 3) for x in step_s]} ms (the "
+          f"first with the optimizer's init); launches {launches} (want "
+          f"{want}); designs {designs}; peak memory {peak_gb:.3f} GB")
+    if launches != want or designs != tc_only(
+            {k: v for k, v in want.items() if v}):
+        fail(f"the training path's launches {launches} / designs {designs} "
+             f"are not {want}, all on tc")
+    if not np.all(np.isfinite(losses + auxes + norms)) or \
+            not losses[-1] < losses[0]:
+        fail(f"training losses {losses}, aux {auxes}, grad norms {norms}: "
+             f"not finite, or the last loss is not below the first")
+    if not peak_gb < 80:
+        fail(f"the training step's peak memory {peak_gb:.3f} GB is not "
+             f"under 80 GB")
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    print(f"train {MOE_ARCH} {MOE_TRAIN_B} x {MOE_TRAIN_S}: step "
+          f"{warm_s * 1e3:.3f} ms (warm min of {TRAIN_STEPS - 1}), "
+          f"{T / warm_s:.1f} tokens/s; peak memory {peak_gb:.3f} GB of "
+          f"{total_gb:.3f}")
+    grad_step = make_grad_step(model, remat=True)
+    g_ms = cuda_ms(torch, lambda: grad_step(params, batch), reps=2)
+    _, grads = grad_step(params, batch)
+    u_ms = cuda_ms(torch, lambda: opt.update(grads, state, params), reps=2)
+    del grads
+    print(f"  the step's halves (warm min of 2): gradient {g_ms:.3f} ms, "
+          f"AdamW update (its clip-norm pass included) {u_ms:.3f} ms")
+    step = make_train_step(model, opt, remat=True)
+    fwd_ms = 2 * cfg.n_layers * sum(times["expert_matmul"][7][k][0] for k in (
+        "forward gate/up", "forward gate/up", "forward down"))
+    n_attn = cfg.layer_kinds().count("attn")
+
+    def profile_step(b, label, wall_s):
+        """One profiled step on ``b``: its busy share of the unprofiled
+        step's ``wall_s``, device time by kind, and the time inside the
+        backward nodes and of the expert kernel's launches."""
+        events, inside = profile_generate(
+            torch, lambda: step(params, state, b), f"train step, {label}",
+            nodes=("ExpertMatmulBackward", "FlashAttentionBackward"))
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        print(f"  the profiled step's device time over the unprofiled warm "
+              f"step: {100 * busy_ms / (wall_s * 1e3):.2f}%")
+        print_device_kinds(events)
+        gmm = [e for e in events if "expert_matmul" in e.key]
+        gmm_n = sum(e.count for e in gmm)
+        gmm_ms = sum(e.self_device_time_total for e in gmm) / 1e3
+        for node, (calls, ms) in inside.items():
+            print(f"  in that step: {node} {calls} calls, {ms:.3f} ms of "
+                  f"device time inside them"
+                  if calls else f"  in that step: {node} not recorded by "
+                  f"the profiler (not measured)")
+        print(f"  in that step: the expert kernel {gmm_n} launches, "
+              f"{gmm_ms:.3f} ms; its {6 * cfg.n_layers} backward launches "
+              f"{gmm_ms - fwd_ms:.3f} ms (the step's kernel time less the "
+              f"{6 * cfg.n_layers} forward and recomputed launches at phase "
+              f"14's times, {fwd_ms:.3f} ms), "
+              f"{times['expert_matmul'][8]:.3f} ms at phase 14's times; "
+              f"flash's {n_attn} plain recomputes, differentiated, "
+              f"{n_attn * times['flash_attention granite'][6]:.3f} ms at "
+              f"phase 14's time")
+
+    profile_step(batch, "the structured batch", warm_s)
+    # the same step on i.i.d. tokens, whose routing is closer to text's
+    # than the structured task's short cycle: both drop shares at these
+    # weights, then the step's wall and its profile
+    iid = unit_tokens(0, MOE_TRAIN_B, MOE_TRAIN_S, cfg.vocab_size)
+    shares = {}
+    for label, b in (("structured", batch), ("i.i.d.", iid)):
+        with torch.no_grad(), recorded_routes(torch) as routes:
+            model.loss(params, _on_device(b, dev))
+        shares[label] = dropped_share(routes)
+        del routes
+    iid_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(params, state, iid)
+        torch.cuda.synchronize()
+        iid_s.append(time.perf_counter() - t0)
+    iid_warm = min(iid_s[1:])
+    print(f"  (token, k) pairs dropped at the weights after {TRAIN_STEPS} "
+          f"steps: structured {shares['structured']:.6f}, i.i.d. "
+          f"{shares['i.i.d.']:.6f}; steps on i.i.d. tokens "
+          f"{[round(x * 1e3, 3) for x in iid_s]} ms, {iid_warm * 1e3:.3f} ms "
+          f"(warm min of 2), {T / iid_warm:.1f} tokens/s")
+    profile_step(iid, "i.i.d. tokens", iid_warm)
+    del state, opt, step, grad_step, hist
+    torch.cuda.empty_cache()
+
+    # 19. the unit-group gradient engine at full width
+    store = UnitStore(*ENGINE_UNIT, cfg.vocab_size)
+    engine = ScanGradEngine(model, store)
+    exact = ScanGradEngine(model, store, min_bucket=1)
+    per_unit = launches_per_step(cfg, False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+
+    def first_difference(x, y, lx, ly):
+        """None if the two grad_sum results are bitwise equal, else the
+        first leaf that differs."""
+        if not np.array_equal(lx, ly):
+            return "losses"
+        return next((path for (path, a), (_, b) in zip(
+            named_leaves(x), named_leaves(y)) if not torch.equal(a, b)),
+            None)
+
+    t0 = time.perf_counter()
+    a, la = engine.grad_sum(params, [3, 0])
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    finite = np.all(np.isfinite(la)) and all(
+        bool(torch.isfinite(x).all()) for x in leaves(a))
+    checks = []
+    for label, eng, ids in (("again [3, 0]", engine, [3, 0]),
+                            ("[0, 3]", engine, [0, 3]),
+                            ("min_bucket=1 [0, 3]", exact, [0, 3])):
+        b, lb = eng.grad_sum(params, ids)
+        checks.append((label, first_difference(a, b, la, lb)))
+        del b
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}
+    want = {k: 4 * 2 * v for k, v in per_unit.items()}
+    stats = (engine.stats(), exact.stats())
+    want_stats = ({"dispatches": 3, "units": 6, "bucket_sizes": [4]},
+                  {"dispatches": 1, "units": 2, "bucket_sizes": [2]})
+    print(f"engine: {MOE_ARCH} at full width, units of {ENGINE_UNIT[0]} x "
+          f"{ENGINE_UNIT[1]} tokens; grad_sum of [3, 0] in "
+          f"{call_s * 1e3:.3f} ms (first call), losses {la.tolist()}, "
+          f"float32 sum of {tree_bytes(a) / 1e9:.3f} GB; "
+          + "; ".join(f"{label}: " + ("bitwise equal" if d is None else
+                                      f"DIFFERS first at {d}")
+                      for label, d in checks)
+          + f"; stats {stats[0]} and {stats[1]} (want {want_stats[0]} and "
+          f"{want_stats[1]}); launches {launches} (want {want}); peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    if not finite or any(d is not None for _, d in checks) \
+            or stats != want_stats or launches != want:
+        fail("the gradient engine at full width: not finite, not bitwise, "
+             "or its counters or launches are not the units'")
+    del a, params, model, engine, exact
+    torch.cuda.empty_cache()
+
+    err, ms, plain_ms, bound, by, lib, bwd, _, _ = times["expert_matmul"]
+    g_err, g_ms, g_plain, g_bound, g_by, g_lib, g_bwd = \
+        times["flash_attention granite"]
+    return [
+        {"name": "flash_attention", "path": MOE_TRAIN_PATH, "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": REPLACES["flash_attention"],
+         "backward": BACKWARDS["flash_attention"],
+         "launches": fit_launches["flash_attention"], "max_abs_err": g_err,
+         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+         "bound_by": g_by, "library_ms": g_lib, "backward_ms": g_bwd},
+        {"name": "expert_matmul", "path": MOE_TRAIN_PATH, "route": "cuda",
+         "source": "src/repro_torch/csrc/expert_matmul.cu",
+         "replaces": REPLACES["expert_matmul"],
+         "backward": BACKWARDS["expert_matmul"],
+         "launches": fit_launches["expert_matmul"], "max_abs_err": err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+         "library_ms": lib, "backward_ms": bwd}]
 
 
 def main() -> None:
@@ -1433,6 +2094,12 @@ def main() -> None:
     print(smi.stdout.strip())
     print(f"torch: {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--granite-serve"]:
+        granite_serve(torch, dev)
+        return
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}; the one option is "
+             f"--granite-serve")
 
     # 2. build every kernel from the checkout's sources, all at once
     from repro_torch.kernels import _build

@@ -17,6 +17,22 @@ Which dropped row the trash row ends up holding is unspecified and never
 read; there is no sum of rows, so bf16 rows are not added in an
 unspecified order, and no host sync picks the kept rows out.
 
+The backward matches the JAX package's (held against ``jax.grad``, with
+pairs dropped, by ``tests/test_torch_train_moe.py``): ``index_copy_``'s
+gradient reads each pair's slot row back, so a dropped pair (whose row
+went to the cut-off trash row) gets exactly zero; the combine's gather
+under ``torch.where`` adds exact zeros for dropped pairs; the router's
+aux loss reaches the router only through ``probs``.  The JAX package
+points every dropped pair's gather at row ``E*C-1``; where autograd
+records the gather, each reads the row of its own index mod ``E*C``
+instead, because the gather's sort-based backward on the card walks one
+row's entries one after another: with half the pairs dropped, one shared
+row took ~22 ms a layer (granite at 1 x 4096 tokens on an H100).  A
+row's gradient is still at most one pair's cotangent plus exact zeros,
+the same bits.  Without a backward (serving) the gather keeps the
+reference's one clamp, which costs two kernels a layer fewer than the
+spread: ~2 ms of a ~60 ms granite decode step on an H100.
+
 The expert-parallel ``moe_apply_a2a`` needs a multi-device mesh and comes
 with the mesh slice of the port.
 """
@@ -111,10 +127,15 @@ def moe_apply_scatter(p: Params, cfg, x: torch.Tensor
     up = expert_matmul(buf, p["wi_up"])
     out_buf = expert_matmul(gate * up, p["wo"])
 
-    # combine
+    # combine: a dropped pair reads a row that the where() zeroes -- with
+    # a backward, the row of its index mod E*C (see the module docstring)
     out_flat = out_buf.reshape(E * C, D)
-    gathered = torch.where(keep[:, None],
-                           out_flat[slot.clamp_max(E * C - 1)], 0.0)
+    if out_buf.requires_grad:
+        rows = torch.where(keep, slot,
+                           torch.arange(T * K, device=x.device) % (E * C))
+    else:
+        rows = slot.clamp_max(E * C - 1)
+    gathered = torch.where(keep[:, None], out_flat[rows], 0.0)
     weighted = gathered * top_p.reshape(-1, 1).to(x.dtype)
     out = weighted.reshape(T, K, D).sum(dim=1)
     return out.reshape(B, S, D), aux

@@ -3,8 +3,8 @@ the port of ``repro.models.registry``.
 
 Every entry point takes ``device=`` and defaults to ``"cuda"``, which
 raises without a card.  The encoder-decoder family comes with a later
-slice of the port; ``loss`` trains the decoder stacks the port serves,
-apart from the MoE family (a later slice).
+slice of the port; ``loss`` trains every decoder stack the port serves,
+the MoE family included (its loss adds the router's aux term).
 """
 from __future__ import annotations
 
@@ -38,8 +38,9 @@ class Model:
         return tf_mod.init_lm_params(self.cfg, gen, dev)
 
     def loss(self, params, batch, mode: str = "scan", remat: bool = False):
-        """(mean next-token cross entropy, metrics) of ``batch`` (tokens
-        and labels (B, S) on the params' device)."""
+        """(mean next-token cross entropy, plus the router aux term for
+        an MoE config; metrics) of ``batch`` (tokens and labels (B, S) on
+        the params' device)."""
         _lm_only(self.cfg)
         return tf_mod.lm_loss(params, self.cfg, batch, mode, remat)
 

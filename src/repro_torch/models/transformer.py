@@ -1,7 +1,8 @@
 """Decoder-LM assembly for serving and training: the port of
 ``repro.models.transformer`` for the block kinds ``attn`` (with a dense
-or an MoE FFN) and ``rec`` (RG-LRU).  Training (``lm_loss``) takes the
-dense FFN only; the MoE family trains in a later slice.
+or an MoE FFN) and ``rec`` (RG-LRU).  Training (``lm_loss``) takes both
+FFNs: an MoE layer's router aux loss is carried in float32 through the
+stack, summed in layer order, and added to the loss with ``aux_weight``.
 
 Layers are grouped into repeating "periods" (the block pattern of hybrid
 archs; period 1 for homogeneous stacks).  Parameters keep the JAX
@@ -144,8 +145,11 @@ def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
         cache
 
 
-def _block_fwd(p: Params, cfg, kind: str, h: torch.Tensor) -> torch.Tensor:
-    """Training / no-cache forward of one block with a dense FFN."""
+def _block_fwd(p: Params, cfg, kind: str, h: torch.Tensor,
+               aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training / no-cache forward of one block: returns (h, aux), the
+    MoE FFN of an ``attn`` block adding its router aux loss to the float32
+    carry ``aux`` (as the JAX ``_block_fwd``)."""
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         h = h + attn.gqa_forward(p["attn"], cfg, x, _window(cfg))
@@ -153,7 +157,11 @@ def _block_fwd(p: Params, cfg, kind: str, h: torch.Tensor) -> torch.Tensor:
         h = h + rec_mod.rglru_forward(p["rec"], cfg, x)
     else:
         raise ValueError(kind)
-    return h + swiglu(p["mlp"], rmsnorm(h, p["ln2"], cfg.norm_eps))
+    x = rmsnorm(h, p["ln2"], cfg.norm_eps)
+    if kind == "attn" and cfg.is_moe:
+        y, a = moe_mod.moe_apply(p["mlp"], cfg, x)
+        return h + y, aux + a
+    return h + swiglu(p["mlp"], x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -242,49 +250,54 @@ def _unbind(tree: Any, n: int) -> List[Any]:
 
 
 def forward_hidden(params: Params, cfg, h: torch.Tensor,
-                   mode: str = "scan", remat: bool = False) -> torch.Tensor:
-    """Runs the full block stack for training.  (The JAX function also
-    returns the MoE aux sum; no MoE layer trains here yet.)
+                   mode: str = "scan", remat: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runs the full block stack for training; returns (h, moe_aux), the
+    float32 sum of the MoE layers' aux losses in layer order (0 for a
+    dense stack).
 
     ``remat`` recomputes each body period ("superblock") in the backward
     instead of keeping its activations (``torch.utils.checkpoint``, the
     counterpart of ``jax.checkpoint`` around the scanned superblock); the
-    tail stays outside it, as in the JAX package."""
+    aux carry passes through it with h.  The tail stays outside it, as in
+    the JAX package."""
     _check_mode(mode)
     period, full, tail = layer_plan(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
-    def superblock(h, pslice):
+    def superblock(h, aux, pslice):
         for i, kind in enumerate(period):
-            h = _block_fwd(pslice[f"b{i}"], cfg, kind, h)
-        return h
+            h, aux = _block_fwd(pslice[f"b{i}"], cfg, kind, h, aux)
+        return h, aux
 
     for pslice in _unbind(params["body"], full):
-        h = (checkpoint(superblock, h, pslice, use_reentrant=False)
-             if remat else superblock(h, pslice))
+        h, aux = (checkpoint(superblock, h, aux, pslice, use_reentrant=False)
+                  if remat else superblock(h, aux, pslice))
     for i, kind in enumerate(tail):
-        h = _block_fwd(params["tail"][f"t{i}"], cfg, kind, h)
-    return h
+        h, aux = _block_fwd(params["tail"][f"t{i}"], cfg, kind, h, aux)
+    return h, aux
 
 
 def lm_loss(params: Params, cfg, batch, mode: str = "scan",
-            remat: bool = False) -> Tuple[torch.Tensor, Dict[str, Any]]:
+            remat: bool = False, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (B, S); returns (loss, {"xent", "moe_aux"}), the
-    JAX package's metrics (its aux term is 0 for a dense stack).
+    ``batch["labels"]`` (B, S), plus ``aux_weight`` times the router aux
+    sum for an MoE config; returns (loss, {"xent", "moe_aux"}), the JAX
+    package's metrics.
 
-    The MoE family (whose loss adds the router's aux term) trains in a
-    later slice of the port and raises ``NotImplementedError``."""
+    As in the JAX ``lm_loss``, ``"xent"`` is the loss after the aux term
+    is added (the reference rebinds ``loss`` before it builds the
+    metrics); the port keeps that, so the metrics match."""
     check_supported(cfg)
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: training the MoE family comes with a later slice "
-            "of the port; this one trains GQA and RG-LRU stacks")
-    h = forward_hidden(params, cfg, params["embed"][batch["tokens"]], mode,
-                       remat)
+    h, aux = forward_hidden(params, cfg, params["embed"][batch["tokens"]],
+                            mode, remat)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = _mask_padded_vocab(cfg, h @ params["lm_head"])
     loss = softmax_xent(logits, batch["labels"])
-    return loss, {"xent": loss, "moe_aux": torch.zeros((), device=h.device)}
+    if cfg.is_moe:
+        loss = loss + aux_weight * aux
+    return loss, {"xent": loss, "moe_aux": aux}
 
 
 def _mask_padded_vocab(cfg, logits: torch.Tensor) -> torch.Tensor:

@@ -48,7 +48,8 @@ import torch
 import dataclasses
 
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.data import structured_unit
+from repro_torch.data import UnitStore, structured_unit
+from repro_torch.hettrain import ScanGradEngine
 from repro_torch.kernels._build import (DESIGN_COUNTS, LAUNCH_COUNTS,
                                         reset_launch_counts)
 from repro_torch.kernels.flash_attention import (attention_ref,
@@ -62,7 +63,7 @@ from repro_torch.kernels.moe_gmm import (expert_matmul, expert_matmul_cuda,
                                          expert_matmul_design,
                                          expert_matmul_ref)
 from repro_torch.kernels.we_rounds import kernel, ref
-from repro_torch.models import build_model
+from repro_torch.models import build_model, moe
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.train.loop import make_grad_step
 
@@ -578,3 +579,53 @@ def test_train_step_on_the_card_runs_the_kernels_and_matches_cpu(
     torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4, atol=1e-4)
     for x, y in zip(tree_leaves(grads_g), tree_leaves(grads_c)):
         torch.testing.assert_close(x.cpu(), y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_moe_layer_backward_takes_six_tensor_core_launches(cuda_device):
+    """One MoE layer of the granite-moe smoke config in bfloat16 (D and F
+    multiples of 8): its backward launches the expert kernel six times
+    (two for each of the three products), all on the tensor cores, and
+    fills ``.grad`` of x and of every weight, the float32 router too."""
+    cfg = dataclasses.replace(
+        smoke_config(get_config("granite-moe-3b-a800m")), dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    layer = {k: v.requires_grad_() for k, v in moe.moe_init(
+        gen, cfg, torch.bfloat16, cuda_device).items()}
+    x = torch.randn((2, 24, cfg.d_model), generator=gen,
+                    device=cuda_device).bfloat16().requires_grad_()
+    out, aux = moe.moe_apply(layer, cfg, x)
+    assert out.grad_fn is not None
+    reset_launch_counts()
+    ((out.float() ** 2).sum() + aux).backward()
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["expert_matmul"] == 6
+    assert DESIGN_COUNTS[("expert_matmul", "tc")] == 6
+    for t in [x, *layer.values()]:
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert bool(torch.isfinite(t.grad).all())
+        assert bool((t.grad != 0).any())
+
+
+@pytest.mark.gpu
+def test_engine_sums_are_order_invariant_on_the_card(cuda_device):
+    """The unit-group gradient engine on the granite-moe smoke config in
+    bfloat16: a group's float32 sum and losses are bitwise equal whichever
+    order its ids come in, and each unit launches flash once and the
+    expert kernel nine times a layer (no remat)."""
+    cfg = dataclasses.replace(
+        smoke_config(get_config("granite-moe-3b-a800m")), dtype="bfloat16")
+    m = build_model(cfg)
+    params = m.init(0, cuda_device)
+    engine = ScanGradEngine(m, UnitStore(2, 16, cfg.vocab_size,
+                                         structured=True))
+    reset_launch_counts()
+    a, la = engine.grad_sum(params, [3, 1, 0, 2])
+    b, lb = engine.grad_sum(params, [0, 1, 2, 3])
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["flash_attention"] == 8 * cfg.n_layers
+    assert LAUNCH_COUNTS["expert_matmul"] == 8 * 9 * cfg.n_layers
+    assert np.array_equal(la, lb) and np.all(np.isfinite(la))
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert x.dtype == torch.float32 and x.is_cuda
+        assert torch.equal(x, y)

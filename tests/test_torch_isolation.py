@@ -96,9 +96,10 @@ def test_default_device_raises_without_a_card():
 
 def test_training_runs_with_jax_and_repro_blocked():
     """The training slice (the differentiable ops, the loss, AdamW, the
-    synthetic data and ``fit``) imports and takes two steps of the
-    recurrentgemma smoke config on the CPU where importing ``jax`` or
-    ``repro`` fails."""
+    synthetic data, ``fit`` and the unit-group gradient engine) imports,
+    takes two steps of the recurrentgemma smoke config and sums a unit
+    group's gradients of the granite-moe one on the CPU where importing
+    ``jax`` or ``repro`` fails."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -117,6 +118,12 @@ def test_training_runs_with_jax_and_repro_blocked():
         "1e-3, 1, 4)), [store.fetch(u) for u in range(2)], log_every=1)\n"
         "assert state.step == 2 and all(math.isfinite(h['loss']) for h in "
         "hist)\n"
+        "from repro_torch.hettrain import ScanGradEngine\n"
+        "moe = build_model(dataclasses.replace(smoke_config(get_config("
+        "'granite-moe-3b-a800m')), dtype='float32'))\n"
+        "eng = ScanGradEngine(moe, UnitStore(1, 12, 256))\n"
+        "_, losses = eng.grad_sum(moe.init(0, 'cpu'), [1, 0])\n"
+        "assert losses.shape == (2,) and eng.stats()['units'] == 2\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok', hist[-1]['loss'])\n")
