@@ -162,12 +162,50 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     equal to that of [0, 3], ``min_bucket=4`` bitwise equal to
     ``min_bucket=1`` (buckets [4] and [2]), and its counters and the
     kernel launches (32 flash and 288 expert launches a unit) matching
-    the units summed.
+    the units summed;
+20. the exact numpy engine at paper scale: the Figure 5 grid (K = 50, N =
+    1e6, 8 points, 1000 trials) for ``mds``, ``work_exchange`` and
+    ``work_exchange_unknown`` through ``mc_grid_panel(...,
+    backend="numpy")``, the paper's claims checked on it as in 4, the
+    ``cuda`` panel's and ``engine="loop"``'s (20 trials) mean ``t_comp``
+    at each point within 6 combined standard errors (or 2e-3 relative)
+    of the numpy one, and both panels' walls and the worst gap printed;
+21. ``HetTrainer`` trains recurrentgemma-2b at its published width and
+    depth (bf16, weights drawn on the card from seed 0, AdamW as in 16)
+    on the training launcher's fleet (8 rates from seed 0), 16 units a
+    step of 1 x 512 structured tokens, 3 steps, under each of the five
+    policies, the weights drawn anew each time, and once more under
+    ``work_exchange`` with worker 3 failing at step 1: the parameters
+    after the last step bitwise equal across the six runs (a SHA-256 of
+    each leaf's bytes), every loss finite and the last below the first,
+    the launch counts zeroed just before each run and read just after
+    (16 x a unit's: flash 8 and the scan 36 (18 forward, 18 backward) a
+    unit, all on tc / ring), ``gradient_coded`` one iteration a step, and
+    the paper's ordering of the policies' mean virtual step time
+    (``work_exchange``, ``work_exchange_online`` and ``het_static``
+    below ``equal_static``) over 300 virtual steps of each trainer's own
+    schedulers and pool, whose first 3 are the trained steps' bit for
+    bit; prints the step wall, the share outside ``grad_sum`` and the
+    peak memory; both kernels are first held against their plain
+    versions and timed at a unit's shapes;
+22. the lossy path at full width and depth 3: ``HetTrainer`` dense, with
+    ``Int8Compressor`` and with ``TopKCompressor(0.25)`` (both without
+    error feedback: the fleet's 8 float32 residual trees would not fit)
+    for 2 steps (int8's wire bytes under 1.2 a parameter a unit, the
+    reference's bound, every loss finite), top-k's second round-trip
+    (with error feedback) of a tree of ones shaped like the params
+    shipping at least the first's mass; then
+    ``run_training_grid`` for the seven ported schemes at
+    ``TrainConfig(model="small", steps=4)`` on the card (2 points x 2
+    trials): loss curves bitwise equal across schemes and within 1e-3
+    relative of the same call on the CPU plain path.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
 path and one for each training path; on a training path each entry also
-names its ``backward`` and times it, ``backward_ms``) and, last, ``{"ok": true,
+names its ``backward`` and times it, ``backward_ms``; the
+heterogeneous-training path's entries also give ``launches_per_step``)
+and, last, ``{"ok": true,
 "device": {...}}``.  Any failed phase exits non-zero with no result line;
 without a CUDA device it exits 1 at once.
 
@@ -180,6 +218,7 @@ JSON line: run from the roots of two trees in turn, it compares their
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import re
 import subprocess
@@ -255,6 +294,32 @@ TRAIN_PATH = f"train-{TRAIN_ARCH}"
 MOE_TRAIN_B, MOE_TRAIN_S = 1, 4096       # the Granite 3.0 context length
 MOE_TRAIN_PATH = f"train-{MOE_ARCH}"
 ENGINE_UNIT = (1, 2048)                  # phase 19: rows, tokens a unit
+# phase 20: the exact engine's schemes and the per-trial loop's trials
+EXACT_SCHEMES = ("mds", "work_exchange", "work_exchange_unknown")
+EXACT_LOOP_TRIALS = 20
+# phases 21-22: HetTrainer on recurrentgemma-2b; the fleet of the training
+# launcher (K workers), units a step of 1 x HET_S tokens, steps a policy;
+# the virtual steps the policies' ordering is held over; the lossy path's
+# steps; the runner's config, units a step, trials and schemes
+HET_PATH = "hettrain-recurrentgemma"
+HET_K, HET_UNITS, HET_S, HET_STEPS = 8, 16, 512, 3
+HET_VIRTUAL_STEPS = 300
+LOSSY_STEPS = 2
+RUNNER_STEPS, RUNNER_N, RUNNER_TRIALS = 4, 8, 2
+RUNNER_SCHEMES = ("oracle", "fixed", "uniform", "mds", "work_exchange",
+                  "work_exchange_unknown", "gradient_coded")
+# the runner's float32 loss curve on the card against the same call on
+# the CPU plain path: flash f32 is held at 2e-5 in phase 7, and the
+# products and sums run in another order; four AdamW steps move the loss
+# by far less than 1e-3 of itself
+RUNNER_CPU_RTOL = 1e-3
+# int8's wire bytes a parameter a unit.  The reference holds int8 below
+# 0.3 of the dense path's bytes on float32 params (tests/test_hetsched.py),
+# 1.2 bytes a parameter a unit; the dense path ships each unit's gradient
+# in the params' dtype, so on bf16 params the same 0.3 would ask 0.6
+# bytes, below int8's 1 byte a parameter for each of the ~15 worker
+# groups of a step.  The bound is held in bytes: 0.3 x float32's 4
+INT8_BYTES_PER_PARAM = 1.2
 REPLACES = {"linear_scan": "src/repro/kernels/linear_scan/kernel.py:22",
             "flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:30",
@@ -2071,6 +2136,487 @@ def moe_train_phases(torch, dev, times):
          "library_ms": lib, "backward_ms": bwd}]
 
 
+def exact_oracle_phase(torch, dev, points, specs):
+    """Phase 20: the Figure 5 grid through the exact numpy engine at paper
+    scale, the ``cuda`` panel and the per-trial loop held against it."""
+    from repro_torch.core import get_scheme, mc_grid_panel
+    schemes = {name: get_scheme(name) for name in EXACT_SCHEMES}
+
+    def panel(backend):
+        t0 = time.perf_counter()
+        out = mc_grid_panel(schemes, specs, N_PAPER, TRIALS,
+                            np.random.default_rng(2020), backend=backend,
+                            device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    exact, exact_s = panel("numpy")
+    fluid, fluid_s = panel("cuda")
+    loops, loop_s = {}, {}
+    for i, name in enumerate(EXACT_SCHEMES[1:]):
+        t0 = time.perf_counter()
+        loops[name] = get_scheme(name, engine="loop").mc_grid(
+            specs, N_PAPER, EXACT_LOOP_TRIALS,
+            np.random.default_rng(2021 + i), device=dev)
+        loop_s[name] = time.perf_counter() - t0
+    print(f"exact oracle: fig5 grid, K={K_PAPER} N={N_PAPER}, "
+          f"{len(specs)} points: numpy panel ({', '.join(EXACT_SCHEMES)}; "
+          f"{TRIALS} trials) {exact_s * 1e3:.3f} ms, cuda panel "
+          f"{fluid_s * 1e3:.3f} ms; engine='loop' ({EXACT_LOOP_TRIALS} "
+          f"trials) "
+          + ", ".join(f"{n} {s * 1e3:.3f} ms" for n, s in loop_s.items()))
+
+    def gap(a, b):
+        """|mean_a - mean_b| in combined standard errors, and whether it
+        is within 6 of them or 2e-3 of b (``mean_close``'s rule)."""
+        se = np.hypot(a.t_comp_std / np.sqrt(a.trials),
+                      b.t_comp_std / np.sqrt(b.trials))
+        d = abs(a.t_comp - b.t_comp)
+        return d / max(se, 1e-300), d < max(MEAN_SE * se, 2e-3 * b.t_comp)
+
+    print("  mu     sigma2   oracle_exact " + " ".join(
+        f"{n[:14]:>14s}" for n in EXACT_SCHEMES) + "   (numpy; cuda gap / "
+        "loop gap in SE)")
+    checks, worst = [], {"cuda": 0.0, "loop": 0.0}
+    for g, ((mu, label), het) in enumerate(zip(points, specs)):
+        oracle = N_PAPER / het.lambda_sum
+        row = {n: exact[n][g].t_comp for n in EXACT_SCHEMES}
+        gaps = []
+        for n in EXACT_SCHEMES:
+            pairs = [("cuda", fluid[n][g])]
+            if n in loops:
+                pairs.append(("loop", loops[n][g]))
+            for kind, other in pairs:
+                se_gap, ok = gap(other, exact[n][g])
+                worst[kind] = max(worst[kind], se_gap)
+                gaps.append(f"{se_gap:.2f}" if kind == "cuda"
+                            else f"/{se_gap:.2f}")
+                checks.append((f"{kind} {n}[mu={mu:g},s2={label}] within "
+                               f"{MEAN_SE:g} SE of numpy", ok))
+        print(f"  {mu:5.0f}  {label:7s}  {oracle:12.2f} " + " ".join(
+            f"{row[n]:14.2f}" for n in EXACT_SCHEMES) + "   "
+            + " ".join(gaps))
+        tag = f"fig5[mu={mu:g},s2={label}] numpy"
+        checks.append((f"{tag} WE-known within 5% of oracle",
+                       row["work_exchange"] <= 1.05 * oracle))
+        checks.append((f"{tag} WE-unknown within 10% of oracle",
+                       row["work_exchange_unknown"] <= 1.10 * oracle))
+        if label != "0":
+            checks.append((f"{tag} MDS >= WE",
+                           row["mds"] >= row["work_exchange"]))
+        for n in EXACT_SCHEMES:
+            if exact[n][g].extra["backend"] != "numpy":
+                checks.append((f"{tag} {n} ran on numpy", False))
+    bad = [name for name, ok in checks if not ok]
+    print(f"  exact-oracle checks: {len(checks) - len(bad)}/{len(checks)} "
+          f"passed; worst gap cuda {worst['cuda']:.3f} SE, loop "
+          f"{worst['loop']:.3f} SE")
+    if bad:
+        fail("exact-oracle checks failed: " + "; ".join(bad))
+
+
+def het_fleet() -> np.ndarray:
+    """The training launcher's simulated fleet (``launch/train.py``):
+    K rates ~ Normal(mu 5, 0.5 mu) from seed 0, clipped at 0.5."""
+    rng = np.random.default_rng(0)
+    return np.clip(rng.normal(5.0, 0.5 * 5.0, HET_K), 0.5, None)
+
+
+def leaf_digests(torch, params) -> list:
+    """(path, SHA-256 of the leaf's bytes) of each leaf, copied to the
+    host in pieces: what two runs' parameters are compared by."""
+    out = []
+    for path, x in named_leaves(params):
+        flat = x.detach().reshape(-1).view(torch.uint8)
+        h = hashlib.sha256()
+        for i in range(0, flat.numel(), 1 << 28):
+            h.update(flat[i:i + (1 << 28)].cpu().numpy())
+        out.append((path, h.hexdigest()))
+    return out
+
+
+def het_kernel_times(torch, dev, cfg):
+    """Both kernels at a unit's shapes (1 x ``HET_S`` tokens): forward and
+    gradients against their plain versions (flash's forward at
+    ``FLASH_TOL``, the rest bitwise), then the kernel, its plain version,
+    the library call, the bound and the whole backward, as phase 14 times
+    them.  Returns {kernel: (max abs error, ms, plain ms, bound ms,
+    bound_by, library ms, backward ms)}."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.linear_scan import (linear_scan,
+                                                 linear_scan_cuda,
+                                                 linear_scan_ref)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def draw(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    S, R = HET_S, cfg.lru_width
+    scan_in = (torch.rand((1, S, R), generator=gen, device=dev) * 0.49
+               + 0.5, draw((1, S, R)))
+    qkv = (draw((1, S, cfg.n_heads, cfg.hd), torch.bfloat16),
+           draw((1, S, cfg.n_kv_heads, cfg.hd), torch.bfloat16),
+           draw((1, S, cfg.n_kv_heads, cfg.hd), torch.bfloat16))
+
+    def flash_w(q, k, v):
+        return flash_attention(q, k, v, True, cfg.window)
+
+    def plain_w(q, k, v):
+        return attention_ref(q, k, v, True, cfg.window)
+
+    times, failed = {}, []
+    for name, op, plain, inputs, fwd_tol in (
+            ("linear_scan", linear_scan, linear_scan_ref, scan_in, 0.0),
+            ("flash_attention", flash_w, plain_w, qkv,
+             FLASH_TOL["bfloat16"])):
+        cot = draw(op(*inputs).shape, inputs[0].dtype)
+        got, out, launched, _ = backward_of(torch, op, inputs, cot)
+        want, ref_out, _, _ = backward_of(torch, plain, inputs, cot)
+        out, ref_out = out.detach(), ref_out.detach()
+        fwd_err = float((out.float() - ref_out.float()).abs().max())
+        err = max([fwd_err] + [float((g.float() - w.float()).abs().max())
+                               for g, w in zip(got, want)])
+        ok = bool(torch.allclose(out.float(), ref_out.float(), rtol=fwd_tol,
+                                 atol=fwd_tol)) if fwd_tol \
+            else torch.equal(out, ref_out)
+        ok = ok and all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"  {name} at a unit's shape {tuple(inputs[0].shape)}: "
+              f"{'ok' if ok else 'FAIL'} forward max_abs_err {fwd_err:.3e} "
+              f"({'bitwise' if not fwd_tol else f'tol {fwd_tol}'}), "
+              f"gradients {'bitwise' if ok else 'differ'}; the backward's "
+              f"launches {launched or 'none'}")
+        if not ok:
+            failed.append(name)
+        times[name] = [err]
+        del got, want, out, ref_out, cot
+    if failed:
+        fail(f"kernels at the heterogeneous-training path's unit shape: "
+             f"{failed}")
+    a, b = scan_in
+    s_ms = cuda_ms(torch, lambda: linear_scan_cuda(a, b))
+    s_plain = cuda_ms(torch, lambda: linear_scan_ref(a, b))
+    s_bytes = 3 * a.numel() * 4
+    s_bound = s_bytes / HBM_BYTES_PER_S * 1e3
+    bwd = {}
+    for name, op, inputs in (("linear_scan", linear_scan, scan_in),
+                             ("flash_attention", flash_w, qkv)):
+        leaves_ = [x.detach().clone().requires_grad_() for x in inputs]
+        out = op(*leaves_)
+        cot = torch.ones_like(out)
+        bwd[name] = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, leaves_, cot, retain_graph=True))
+        del leaves_, out, cot
+    print(f"linear_scan at {tuple(a.shape)} f32: kernel {s_ms:.4f} ms "
+          f"({s_bytes / s_ms / 1e9:.3f} TB/s, {s_bound / s_ms:.3f} of the "
+          f"bound), plain {s_plain:.4f} ms; bound {s_bound:.4f} ms by bytes "
+          f"({s_bytes} bytes); the whole backward {bwd['linear_scan']:.4f} "
+          f"ms")
+    f_ms, f_plain, f_lib, f_bound, f_by = time_flash(torch, qkv, cfg.window)
+    print(f"flash_attention backward at {tuple(qkv[0].shape)} bf16 (the "
+          f"plain version recomputed and differentiated): "
+          f"{bwd['flash_attention']:.4f} ms")
+    times["linear_scan"] += [s_ms, s_plain, s_bound, "bytes", None,
+                             bwd["linear_scan"]]
+    times["flash_attention"] += [f_ms, f_plain, f_bound, f_by, f_lib,
+                                 bwd["flash_attention"]]
+    return times
+
+
+def het_phases(torch, dev):
+    """Phases 21-22; returns the heterogeneous-training path's entries."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import HetSpec
+    from repro_torch.data import UnitStore
+    from repro_torch.distributed import (POLICIES, HetTrainer,
+                                         Int8Compressor, TopKCompressor)
+    from repro_torch.hettrain import (TrainConfig, run_training_grid,
+                                      run_virtual_step, tree_bytes)
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = get_config(TRAIN_ARCH)
+    rates = het_fleet()
+    print(f"heterogeneous training: fleet of {HET_K} rates "
+          f"{np.round(rates, 4).tolist()}; {HET_UNITS} units a step of 1 x "
+          f"{HET_S} structured tokens")
+    times = het_kernel_times(torch, dev, cfg)
+
+    # 21. HetTrainer at full width under each policy, from the same seed
+    model = build_model(cfg)
+    store = UnitStore(1, HET_S, cfg.vocab_size, structured=True)
+    per_unit = launches_per_step(cfg, False)
+    per_step = {k: HET_UNITS * v for k, v in per_unit.items()}
+    want = {k: HET_STEPS * v for k, v in per_step.items()}
+    want_designs = {("flash_attention", "tc"): want["flash_attention"],
+                    ("linear_scan", "ring"): want["linear_scan"]}
+
+    def trainer_for(model_, policy, compressor=None):
+        return HetTrainer(model_, AdamW(lr=constant(TRAIN_LR)), rates,
+                          store, policy=policy, units_per_step=HET_UNITS,
+                          compressor=compressor)
+
+    runs = {}
+    cases = [(p, p, None) for p in POLICIES] + [
+        ("work_exchange, worker 3 failing at step 1", "work_exchange",
+         {1: [3]})]
+    for label, policy, failures in cases:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        trainer = trainer_for(model, policy)
+        grad_s = []
+        grad_sum = trainer.engine.grad_sum
+
+        def timed(p, ids, _grad_sum=grad_sum):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _grad_sum(p, ids)
+            torch.cuda.synchronize()
+            grad_s.append(time.perf_counter() - t)
+            return out
+
+        trainer.engine.grad_sum = timed
+        _build.reset_launch_counts()
+        step_s = []
+        if failures is None:
+            state = trainer.opt.init(params)
+            hist = []
+            for s in range(HET_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, state, rep = trainer.step(params, state, s)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                hist.append(rep)
+        else:
+            t = time.perf_counter()
+            params, state, hist = trainer.train(params, HET_STEPS,
+                                                failures=failures)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        launches = {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}
+        designs = {k: v for k, v in _build.DESIGN_COUNTS.items() if v}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        digests = leaf_digests(torch, params)
+        runs[label] = dict(hist=hist, step_s=step_s, grad_s=grad_s,
+                           launches=launches, designs=designs, peak=peak,
+                           digests=digests)
+        warm = step_s[1:] if failures is None else step_s
+        if policy == "work_exchange" and failures is None:
+            # one more step, profiled: the device's busy share and kinds
+            events, _ = profile_generate(
+                torch, lambda: trainer.step(params, state, HET_STEPS),
+                "HetTrainer step (work_exchange)")
+            print_device_kinds(events)
+            busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+            print(f"  the profiled step's device time over the unprofiled "
+                  f"warm step: {100 * busy_ms / (min(warm) * 1e3):.2f}%")
+        # one grad_sum a step (the canonical path; the profiled step
+        # added one more)
+        outside = 1.0 - sum(grad_s[1:HET_STEPS]) / sum(warm) \
+            if failures is None else float("nan")
+        print(f"  {label}: draw {draw_s:.2f} s; losses "
+              f"{[round(h.loss, 6) for h in hist]}; t_virtual "
+              f"{[round(h.t_virtual, 6) for h in hist]}; iterations "
+              f"{[h.iterations for h in hist]}; n_comm "
+              f"{[h.n_comm_units for h in hist]}; refetch tokens "
+              f"{[h.refetch_tokens for h in hist]}; step wall "
+              f"{[round(s * 1e3, 3) for s in step_s]} ms"
+              + (f" (warm min {min(warm) * 1e3:.3f} ms, "
+                 f"{100 * outside:.2f}% outside grad_sum)"
+                 if failures is None else " (the whole train call)")
+              + f"; launches {launches} (want {want}); peak {peak:.3f} GB")
+        del params, state, trainer, hist
+    torch.cuda.empty_cache()
+    first = runs[POLICIES[0]]
+    same = [label for label, r in runs.items()
+            if r["digests"] == first["digests"]]
+    n_leaves = len(first["digests"])
+    print(f"  parameters after {HET_STEPS} steps: {len(same)} of "
+          f"{len(runs)} runs bitwise equal to {POLICIES[0]}'s ({n_leaves} "
+          f"leaves, SHA-256 of each leaf's bytes)")
+    problems = []
+    if len(same) != len(runs):
+        problems.append(f"parameters differ: only {same} equal "
+                        f"{POLICIES[0]}'s")
+    for label, r in runs.items():
+        losses = [h.loss for h in r["hist"]]
+        if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            problems.append(f"{label}: losses {losses}")
+        if r["launches"] != want or r["designs"] != want_designs:
+            problems.append(f"{label}: launches {r['launches']}, designs "
+                            f"{r['designs']}")
+    if any(h.iterations != 1 for h in runs["gradient_coded"]["hist"]):
+        problems.append("gradient_coded took more than 1 iteration a step")
+    # the paper's ordering of the policies' virtual step times.  Over
+    # the trained steps alone the ordering is noise (16 units on 8
+    # workers: ~0.1 of the step's virtual time a step), so it is held over
+    # HET_VIRTUAL_STEPS steps of the same schedulers and pool (each
+    # HetTrainer's own; no gradient), whose first HET_STEPS steps are the
+    # trained steps' clocks bit for bit
+    virtual = {}
+    for policy in POLICIES:
+        trainer = trainer_for(None, policy)
+        ts = []
+        for s in range(HET_VIRTUAL_STEPS):
+            ids = list(range(s * HET_UNITS, (s + 1) * HET_UNITS))
+            ts.append(run_virtual_step(trainer._make_scheduler(ids),
+                                       trainer.pool, ids,
+                                       loader=trainer.loader).t_comp)
+        virtual[policy] = np.array(ts)
+        trained = [h.t_virtual for h in runs[policy]["hist"]]
+        if trained != ts[:HET_STEPS]:
+            problems.append(f"{policy}: the virtual run's first steps "
+                            f"{ts[:HET_STEPS]} are not the trained steps' "
+                            f"{trained}")
+    means = {p: float(np.mean([h.t_virtual for h in runs[p]["hist"]]))
+             for p in POLICIES}
+    vmeans = {p: float(v.mean()) for p, v in virtual.items()}
+    vse = {p: float(v.std() / np.sqrt(v.size)) for p, v in virtual.items()}
+    print(f"  mean t_virtual over the {HET_STEPS} trained steps: "
+          + ", ".join(f"{p} {means[p]:.6f}" for p in POLICIES))
+    print(f"  mean t_virtual over {HET_VIRTUAL_STEPS} virtual steps (SE): "
+          + ", ".join(f"{p} {vmeans[p]:.6f} ({vse[p]:.6f})"
+                      for p in POLICIES))
+    for p in ("work_exchange", "work_exchange_online", "het_static"):
+        if not vmeans[p] < vmeans["equal_static"]:
+            problems.append(f"{p}'s mean virtual step {vmeans[p]} is not "
+                            f"below equal_static's {vmeans['equal_static']}")
+    if problems:
+        fail("HetTrainer at full width: " + "; ".join(problems))
+    peak = max(r["peak"] for r in runs.values())
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    warm = min(min(r["step_s"][1:]) for label, r in runs.items()
+               if label in POLICIES)
+    print(f"hettrain {TRAIN_ARCH}: {HET_UNITS} x 1 x {HET_S} tokens a step, "
+          f"warm step min {warm * 1e3:.3f} ms "
+          f"({HET_UNITS * HET_S / warm:.1f} tokens/s); peak memory "
+          f"{peak:.3f} GB of {total_gb:.3f}; launches a step {per_step}")
+
+    # 22. the lossy path at depth 3, and the runner on the card
+    cfg3 = dataclasses.replace(cfg, n_layers=3)
+    model3 = build_model(cfg3)
+    lossy = {}
+    # without error feedback: a worker's float32 residual tree holds all
+    # 1.57e9 parameters of the depth-3 model (the untied lm_head and the
+    # embedding are 1.31e9 of them), so the fleet's 8 take 50 GB, which
+    # beside the params, AdamW's state and the step's sums does not fit
+    # on one 80 GB card; the residual path is held below on one worker at
+    # this width, and against the reference on the CPU
+    for label, comp in (("dense", None),
+                        ("int8", Int8Compressor(error_feedback=False)),
+                        ("top-k 0.25", TopKCompressor(
+                            0.25, error_feedback=False))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = model3.init(seed=0, device=dev)
+        n_params3 = describe_params(params)[0]
+        trainer = trainer_for(model3, "work_exchange", comp)
+        t0 = time.perf_counter()
+        params, state, hist = trainer.train(params, LOSSY_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak3 = torch.cuda.max_memory_allocated(dev) / 1e9
+        lossy[label] = hist
+        print(f"  depth 3, {label}: losses {[round(h.loss, 6) for h in hist]}"
+              f"; grad bytes {[h.grad_bytes for h in hist]}; "
+              f"{LOSSY_STEPS} steps in {wall * 1e3:.3f} ms; peak "
+              f"{peak3:.3f} GB")
+        del params, state, trainer, comp
+    torch.cuda.empty_cache()
+    dense_b = lossy["dense"][0].grad_bytes
+    problems = []
+    int8_b = lossy["int8"][0].grad_bytes
+    per_param = int8_b / (HET_UNITS * n_params3)
+    print(f"  int8 ships {int8_b / dense_b:.4f} of the dense path's bytes "
+          f"({dense_b / (HET_UNITS * n_params3):.4f} bytes a parameter a "
+          f"unit): {per_param:.4f} bytes a parameter a unit (limit "
+          f"{INT8_BYTES_PER_PARAM})")
+    if not per_param < INT8_BYTES_PER_PARAM:
+        problems.append(f"int8 ships {per_param} bytes a parameter a unit")
+    if not all(np.isfinite(h.loss) for hs in lossy.values() for h in hs):
+        problems.append("a loss is not finite")
+    params = model3.init(seed=0, device=dev)
+    ones = tree_map(lambda x: torch.ones(x.shape, device=dev), params)
+    comp = TopKCompressor(0.25)
+    del params
+    out1, b1 = comp.roundtrip(ones, 0)
+    m1 = sum(float(x.double().sum()) for x in leaves(out1))
+    del out1
+    out2, b2 = comp.roundtrip(ones, 0)
+    m2 = sum(float(x.double().sum()) for x in leaves(out2))
+    print(f"  top-k 0.25 on ones shaped like the depth-3 params "
+          f"({tree_bytes(ones) / 1e9:.3f} GB float32): mass {m1:.6e} then "
+          f"{m2:.6e} ({b1:.0f} and {b2:.0f} wire bytes)")
+    if not m2 >= m1:
+        problems.append(f"top-k's second round ships less mass ({m2}) than "
+                        f"its first ({m1})")
+    del ones, out2, comp
+    torch.cuda.empty_cache()
+
+    train = TrainConfig(model="small", steps=RUNNER_STEPS)
+    specs = [HetSpec(rates), HetSpec.uniform_random(
+        HET_K, 5.0, 5.0 ** 2 / 6, np.random.default_rng(1))]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    reports = {name: run_training_grid(name, {}, specs, train, RUNNER_N,
+                                       RUNNER_TRIALS, 0, device=dev)
+               for name in RUNNER_SCHEMES}
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    runner_launches = {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}
+    t0 = time.perf_counter()
+    cpu = run_training_grid("work_exchange", {}, specs, train, RUNNER_N,
+                            RUNNER_TRIALS, 0, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    curves = [r.extra["training"]["loss_curve"]
+              for reps in reports.values() for r in reps]
+    cpu_curve = np.array(cpu[0].extra["training"]["loss_curve"])
+    rel = float(np.max(np.abs(np.array(curves[0]) - cpu_curve)
+                       / np.abs(cpu_curve)))
+    print(f"  run_training_grid, {len(RUNNER_SCHEMES)} schemes, "
+          f"TrainConfig(model='small', steps={RUNNER_STEPS}), {RUNNER_N} "
+          f"units a step, {len(specs)} points x {RUNNER_TRIALS} trials: "
+          f"{card_s * 1e3:.3f} ms on the card (launches "
+          f"{runner_launches}), one scheme on the CPU {cpu_s * 1e3:.3f} ms;"
+          f" loss curve {[round(x, 6) for x in curves[0]]}, "
+          f"{len(curves)} curves bitwise equal: "
+          f"{all(c == curves[0] for c in curves)}; against the CPU plain "
+          f"path {rel:.3e} relative (limit {RUNNER_CPU_RTOL})")
+    if not all(c == curves[0] for c in curves):
+        problems.append("the runner's loss curves differ across schemes")
+    if not rel <= RUNNER_CPU_RTOL:
+        problems.append(f"the runner's curve is {rel} from the CPU's")
+    if cpu[0].t_comp != reports["work_exchange"][0].t_comp:
+        problems.append("the runner's virtual times differ card to CPU")
+    if not runner_launches.get("flash_attention"):
+        problems.append("the runner's trajectory launched no flash kernel")
+    if problems:
+        fail("lossy path and runner: " + "; ".join(problems))
+    del model3
+
+    entries = []
+    main = runs["work_exchange"]
+    for name in ("linear_scan", "flash_attention"):
+        err, ms, plain_ms, bound, by, lib, bwd = times[name]
+        entries.append({
+            "name": name, "path": HET_PATH, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "backward": BACKWARDS[name],
+            "launches": main["launches"][name],
+            "launches_per_step": per_step[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib, "backward_ms": bwd})
+    return entries
+
+
 def main() -> None:
     import torch
 
@@ -2315,6 +2861,8 @@ def main() -> None:
     serve_kernels = serve_phases(torch, dev)
     moe_kernels = moe_phases(torch, dev)
     train_kernels = train_phases(torch, dev)
+    exact_oracle_phase(torch, dev, points, specs)
+    het_kernels = het_phases(torch, dev)
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -2324,7 +2872,7 @@ def main() -> None:
         "ms": times[B0][0], "plain_ms": times[B0][1],
         "bound_ms": bounds[B0][0], "bound_by": bounds[B0][1],
         "library_ms": None}] + serve_kernels + moe_kernels
-        + train_kernels}))
+        + train_kernels + het_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

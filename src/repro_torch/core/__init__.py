@@ -3,12 +3,23 @@
 Layout (each module the counterpart of its namesake in ``repro.core``)
   types        -- HetSpec / RunStats / ExchangeConfig dataclasses
   registry     -- the generic string-keyed plugin registry
-  assignment   -- proportional / capped / uniform allocation rules (scalar)
-  exchange     -- the ``Assignment`` record ``Scheme.plan`` returns
-  samplers     -- the ``cuda`` sampler backend (the hand-written we_rounds
-                  kernel on the card, its plain PyTorch version on CPU)
-  schemes      -- the policy surface: oracle, fixed, uniform, mds, and
-                  work exchange with known / unknown rates
+  assignment   -- proportional / capped / uniform allocation rules, scalar
+                  and trial-batched (largest-remainder, water-filling)
+  estimator    -- online rate estimation (paper eq. 23 + EMA + Bayesian)
+  exchange     -- unit-id-level master protocol (Algorithms 1 & 3) and the
+                  one-shot cover scheduler of gradient coding
+  samplers     -- the sampler backends behind Scheme.mc + mc_grid: the
+                  exact numpy engine (``numpy``, host) and the fused
+                  we_rounds kernel (``cuda``; its plain PyTorch version on
+                  the CPU)
+  schemes      -- the policy surface: oracle, fixed, uniform, mds, work
+                  exchange with known / unknown rates, gradient_coded;
+                  ``simulate`` (one exact trial), ``mc``, ``mc_grid``,
+                  ``make_scheduler``
+  simulator    -- DEPRECATED free-function shims over ``schemes``
+  coded        -- executable MDS matmul + gradient coding baselines
+  runtime      -- real-gradients / virtual-clock heterogeneous runtime
+                  (``VirtualWorkerPool`` incl. measured-trace replay)
 
 Three-line API:
 
@@ -17,10 +28,11 @@ Three-line API:
     >>> report = get_scheme("work_exchange").mc(het, N=1_000_000,
     ...                                         trials=100, rng=rng)
 
-Every entry point runs on ``device="cuda"`` unless the caller passes
-``device="cpu"``.
+Every ``mc`` entry point runs on ``device="cuda"`` unless the caller
+passes ``device="cpu"``.
 """
-from . import assignment, exchange, registry, samplers, schemes, types
+from . import (assignment, coded, estimator, exchange, registry, runtime,
+               samplers, schemes, simulator, types)
 from .registry import Registry
 from .samplers import (SAMPLER_BACKENDS, get_backend, list_backends,
                        register_backend, resolve_backend)
@@ -29,7 +41,8 @@ from .schemes import (MCReport, SCHEME_REGISTRY, Scheme, get_scheme,
 from .types import ExchangeConfig, HetSpec, RunStats
 
 __all__ = [
-    "assignment", "exchange", "registry", "samplers", "schemes", "types",
+    "assignment", "coded", "estimator", "exchange", "registry", "runtime",
+    "samplers", "schemes", "simulator", "types",
     "Registry", "MCReport", "Scheme", "SCHEME_REGISTRY", "get_scheme",
     "list_schemes", "mc_grid_panel", "register_scheme",
     "SAMPLER_BACKENDS", "get_backend", "list_backends", "register_backend",

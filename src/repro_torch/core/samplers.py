@@ -1,35 +1,48 @@
 """Sampler backends for the work-exchange Monte-Carlo engine (port).
 
 The reference registers ``numpy`` (exact), ``jax`` (jitted fluid
-relaxation) and ``pallas`` (the fused ``we_rounds`` kernel).  This slice
-of the port registers one backend, ``cuda``, in the role of ``pallas``:
-the same fluid relaxation -- counter-based Threefry-2x32 bits keyed per
-``(trial, worker, round)``, the mean-exact Marsaglia-Tsang Gamma, the
-per-trial argmin, the normal-limit Binomial -- fused into the
-hand-written CUDA kernel ``repro_torch.kernels.we_rounds`` on the card,
-and its plain PyTorch version for tensors on the CPU.
+relaxation) and ``pallas`` (the fused ``we_rounds`` kernel).  The port
+registers two of their counterparts:
 
-It consumes the numpy ``Generator`` exactly as the reference ``pallas``
-backend does (one ``rng.integers(0, 2**32, size=2)`` draw per engine
-call) and pads to the same shape buckets (rows to the ``_rows_target``
-bucket of 128, K to ``bucket_cols``, R to ``bucket_rounds``), so both
-packages key the same Threefry counters from the same Generator and
-agree row by row to float tolerance.
+``numpy``
+    The exact integer-unit engine (largest-remainder assignments, exact
+    ``Generator.gamma`` / ``Generator.binomial`` draws), the port's own
+    copy of the reference's: from the same Generator it draws in the same
+    order and returns the same bits.  It runs on the host whatever the
+    ``device``, and is the oracle the other backend is held against.
+
+``cuda``
+    The role of ``pallas``: the same fluid relaxation as the reference's
+    transform backends -- counter-based Threefry-2x32 bits keyed per
+    ``(trial, worker, round)``, the mean-exact Marsaglia-Tsang Gamma, the
+    per-trial argmin, the normal-limit Binomial -- fused into the
+    hand-written CUDA kernel ``repro_torch.kernels.we_rounds`` on the
+    card, and its plain PyTorch version for tensors on the CPU.  It
+    consumes the numpy ``Generator`` exactly as the reference ``pallas``
+    backend does (one ``rng.integers(0, 2**32, size=2)`` draw per engine
+    call) and pads to the same shape buckets (rows to the ``_rows_target``
+    bucket of 128, K to ``bucket_cols``, R to ``bucket_rounds``), so both
+    packages key the same Threefry counters from the same Generator and
+    agree row by row to float tolerance.
 
 The grid contract returns flat per-run arrays ``(t_comp, iterations,
 n_comm)`` of length ``G * trials`` in grid-major order.  Every backend
-call takes ``device=`` (default ``"cuda"``, which raises without a card).
-Backends are selected per call (``mc(..., backend="cuda")``); ``cuda`` is
-the default and, in this slice, the only one.
+call takes ``capped_mode`` (only ``numpy`` has ``"waterfill"``) and
+``device=`` (default ``"cuda"``, which raises without a card).  Backends
+are selected per call (``mc(..., backend="numpy")``); ``cuda`` is the
+default, and ``numpy`` is the caller's explicit choice of the exact host
+engine, never a fallback.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Literal, Optional, Tuple
 
 import numpy as np
 
 from ..device import DEFAULT_DEVICE
+from .assignment import (capped_proportional_assignment_batch,
+                         largest_remainder_round_batch)
 from .registry import Registry
 from .types import ExchangeConfig
 
@@ -37,7 +50,8 @@ DEFAULT_BACKEND = "cuda"
 
 # (t_comp, iterations, n_comm), each shape (G * trials,), grid-major
 GridArrays = Tuple[np.ndarray, np.ndarray, np.ndarray]
-# (lam (G, K), N, cfg, trials, rng, rate_schedule=None, device=...)
+# (lam (G, K), N, cfg, trials, rng, capped_mode="carry",
+#  rate_schedule=None, device=...)
 WEGridFn = Callable[..., GridArrays]
 # (shape_rows, scale_rows, rng, device=...) -> (R, K) Gamma(shape) * scale
 GammaRowsFn = Callable[..., np.ndarray]
@@ -52,21 +66,22 @@ class SamplerBackend:
     """One RNG/compute backend behind the work-exchange MC pipeline.
 
     ``gamma_rows`` is the batched order-statistic primitive the MDS
-    L-sweep draws through.  ``work_exchange_panel`` runs the
+    L-sweep draws through.  ``work_exchange_panel`` (``None`` where the
+    backend has none: the pair then runs as two grid calls) runs the
     known/unknown work-exchange pair of a whole panel in one engine call:
     ``(lam (G, K), N, cfg_known, cfg_unknown, trials, rng,
     rate_schedule=None, device=...) -> {"known": GridArrays, "unknown":
     GridArrays}``.  ``coupled_mds_sweep`` marks the common-random-numbers
     L-sweep (candidate Erlangs built as cumulative Gamma increments over
     one shared trial axis), the sweep of the reference's transform
-    backends; the independent sweep of exact backends arrives with the
-    port's numpy backend.
+    backends; exact backends leave it False and sweep every candidate
+    on independent draws, bit for bit the per-L loop.
     """
 
     name: str
     work_exchange_grid: WEGridFn
     gamma_rows: GammaRowsFn
-    work_exchange_panel: Callable
+    work_exchange_panel: Optional[Callable] = None
     description: str = ""
     coupled_mds_sweep: bool = False
 
@@ -225,17 +240,208 @@ def _lam_rows(lam: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# numpy backend: exact integer-unit engine, generalized to per-row rates
+# ---------------------------------------------------------------------------
+
+def work_exchange_grid_numpy(lam: np.ndarray, N: int, cfg: ExchangeConfig,
+                             trials: int, rng: np.random.Generator,
+                             capped_mode: Literal["carry", "waterfill"]
+                             = "carry",
+                             rate_schedule: Optional[np.ndarray] = None,
+                             device=DEFAULT_DEVICE) -> GridArrays:
+    """Exact batched engine over a ``(G, K)`` heterogeneity grid, on the
+    host whatever ``device`` names (the caller has resolved it).
+
+    Every row of the ``(G * trials, K)`` state is one independent run of
+    Algorithm 1/3; rows are grid-major (``g * trials + t``).  With
+    ``G == 1`` the randomness is consumed in exactly the order of the
+    reference's trial-batched engine (and hence, at ``trials == 1``, of
+    the scalar reference) -- the bit-identity the tests pin down.
+
+    ``rate_schedule`` (optional, ``(G, R, K)``) drives scenario drift:
+    the service draws of exchange round ``r`` use row ``min(r, R - 1)``
+    of the point's schedule while the *assignment* keeps using the
+    nominal ``lam`` (known) or the online estimate (unknown), exactly
+    the scheduler-sees-nominal / reality-drifts split of the drifting
+    and trace-corpus scenario families.  With ``rate_schedule=None``
+    this path is byte-for-byte the stationary engine.
+    """
+    lam = np.asarray(lam, dtype=np.float64)
+    if lam.ndim != 2:
+        raise ValueError(f"lam must be (G, K); got shape {lam.shape}")
+    G, K = lam.shape
+    T = int(trials)
+    B = G * T
+    known = cfg.known_heterogeneity
+    threshold = cfg.threshold_frac * N / K
+    cap = (np.inf if cfg.storage_cap_frac is None or known
+           else int(np.ceil(cfg.storage_cap_frac * N / K)))
+    lam_rows = np.repeat(lam, T, axis=0)          # (B, K), grid-major
+    inv_lam = 1.0 / lam_rows
+    inv_sched = None
+    if rate_schedule is not None:
+        sched = np.asarray(rate_schedule, dtype=np.float64)
+        if sched.ndim != 3 or sched.shape[0] != G or sched.shape[2] != K:
+            raise ValueError(f"rate_schedule must be (G={G}, R, K={K}); "
+                             f"got shape {sched.shape}")
+        inv_sched = 1.0 / np.repeat(sched, T, axis=0)   # (B, R, K)
+
+    est_done = np.zeros((B, K))
+    est_time = np.zeros(B)
+    lam_hat = np.ones((B, K))
+    n_rem = np.full(B, N, dtype=np.int64)
+    n_left_prev = np.zeros((B, K), dtype=np.int64)
+    n_done = np.zeros((B, K), dtype=np.int64)
+    t_comp = np.zeros(B)
+    n_comm = np.zeros(B)
+    iters = np.zeros(B, dtype=np.int64)
+    in_loop = np.ones(B, dtype=bool)
+
+    while True:
+        # compact every pass to the runs still above the threshold; row
+        # order is ascending, so a lone run draws in exactly the scalar
+        # order and the tail of long-running runs stays cheap
+        in_loop &= (n_rem > threshold) & (iters < cfg.max_iterations)
+        idx = np.flatnonzero(in_loop)
+        if idx.size == 0:
+            break
+        n = idx.size
+        rates = lam_rows[idx] if known else lam_hat[idx]
+        rem = n_rem[idx]
+        if np.isinf(cap):
+            assign = largest_remainder_round_batch(rates, rem)
+        elif capped_mode == "waterfill":
+            assign = capped_proportional_assignment_batch(rates, rem, cap)
+        else:
+            assign = np.minimum(largest_remainder_round_batch(rates, rem),
+                                cap)
+        assigned = assign.sum(axis=1)
+        carried = rem - assigned
+        # degenerate rounding: that run leaves the loop without drawing
+        live = assigned > 0
+        if not live.all():
+            in_loop[idx[~live]] = False
+            idx, assign, carried = idx[live], assign[live], carried[live]
+            n = idx.size
+            if n == 0:
+                break
+
+        started = iters[idx] > 0
+        comm_add = np.maximum(assign - n_left_prev[idx], 0).sum(axis=1)
+        n_comm[idx] += np.where(started, comm_add, 0.0)
+
+        # batched iteration outcome (same draw order as the scalar path)
+        if inv_sched is None:
+            scale = inv_lam[idx]
+        else:        # service rates of THIS round (clamped to the last row)
+            r_idx = np.minimum(iters[idx], inv_sched.shape[1] - 1)
+            scale = inv_sched[idx, r_idx]
+        busy = assign > 0
+        if busy.all():      # the common case: draw the full matrix directly
+            t_k = rng.gamma(shape=assign, scale=scale)
+        else:
+            t_k = np.full((n, K), np.inf)
+            t_k[busy] = rng.gamma(shape=assign[busy], scale=scale[busy])
+        finisher = np.argmin(t_k, axis=1)
+        rows = np.arange(n)
+        t_star = t_k[rows, finisher]
+        done = np.zeros((n, K), dtype=np.int64)
+        done[rows, finisher] = assign[rows, finisher]
+        others = busy.copy()
+        others[rows, finisher] = False
+        o_rows, o_cols = np.nonzero(others)      # C order == scalar draw order
+        if o_rows.size:
+            n_oth = np.maximum(assign[o_rows, o_cols] - 1, 0)
+            p_oth = np.clip(t_star[o_rows] / t_k[o_rows, o_cols], 0.0, 1.0)
+            done[o_rows, o_cols] = rng.binomial(n_oth, p_oth)
+
+        iters[idx] += 1
+        t_comp[idx] += t_star
+        n_done[idx] += done
+        leftover = assign - done
+        n_left_prev[idx] = leftover
+        n_rem[idx] = carried + leftover.sum(axis=1)
+        if not known:        # online estimate, eq. (23)
+            ed = est_done[idx] + done
+            et = est_time[idx] + t_star
+            est_done[idx] = ed
+            est_time[idx] = et
+            lam_hat[idx] = np.where(ed > 0,
+                                    ed / np.maximum(et, 1e-300)[:, None], 1.0)
+
+    # final phase below the threshold: assign the remainder, wait for all
+    idx = np.flatnonzero(n_rem > 0)
+    if idx.size:
+        n = idx.size
+        rates = lam_rows[idx] if known else lam_hat[idx]
+        assign = largest_remainder_round_batch(rates, n_rem[idx])
+        comm_add = np.maximum(assign - n_left_prev[idx], 0).sum(axis=1)
+        n_comm[idx] += np.where(iters[idx] > 0, comm_add, 0.0)
+        if inv_sched is None:
+            scale = inv_lam[idx]
+        else:
+            r_idx = np.minimum(iters[idx], inv_sched.shape[1] - 1)
+            scale = inv_sched[idx, r_idx]
+        busy = assign > 0
+        if busy.all():
+            t_k = rng.gamma(shape=assign, scale=scale)
+        else:
+            t_k = np.zeros((n, K))
+            t_k[busy] = rng.gamma(shape=assign[busy], scale=scale[busy])
+        t_comp[idx] += t_k.max(axis=1)
+        n_done[idx] += assign
+        iters[idx] += 1
+
+    totals = n_done.sum(axis=1)
+    if not (totals == N).all():
+        bad = int(np.flatnonzero(totals != N)[0])
+        raise AssertionError(f"work conservation violated in run {bad}: "
+                             f"processed {int(totals[bad])} of {N}")
+    return t_comp, iters.astype(np.float64), n_comm
+
+
+def gamma_rows_numpy(shape_rows: np.ndarray, scale_rows: np.ndarray,
+                     rng: np.random.Generator,
+                     device=DEFAULT_DEVICE) -> np.ndarray:
+    """Exact ``Generator.gamma`` over an ``(R, K)`` matrix in one call, on
+    the host whatever ``device`` names.
+
+    ``shape_rows`` and ``scale_rows`` broadcast against each other (e.g.
+    an ``(R, 1)`` shape column against ``(R, K)`` scales).  With rows
+    laid out L-major this consumes randomness in exactly the order of
+    the per-L sweep loop ``schemes.mds_sweep`` (``Generator.gamma``
+    fills the broadcast output element by element in C order whether the
+    shape argument is scalar or array), which is what makes the batched
+    MDS sweep bit-identical to the loop.
+    """
+    shape_rows = np.asarray(shape_rows, dtype=np.float64)
+    out_shape = np.broadcast_shapes(shape_rows.shape,
+                                    np.asarray(scale_rows).shape)
+    if len(out_shape) != 2:
+        raise ValueError(f"shape/scale rows must broadcast to (R, K); "
+                         f"got {out_shape}")
+    return rng.gamma(shape=shape_rows, scale=scale_rows)
+
+
+# ---------------------------------------------------------------------------
 # cuda backend: the fused we_rounds kernel (repro_torch.kernels.we_rounds)
 # ---------------------------------------------------------------------------
 
 def work_exchange_grid_cuda(lam: np.ndarray, N: int, cfg: ExchangeConfig,
                             trials: int, rng: np.random.Generator,
+                            capped_mode: Literal["carry", "waterfill"]
+                            = "carry",
                             rate_schedule: Optional[np.ndarray] = None,
                             device=DEFAULT_DEVICE) -> GridArrays:
     """One fused pass over the ``(G * trials, K)`` grid: the CUDA kernel
     on the card, its plain PyTorch version on the CPU.  The numpy ``rng``
     only seeds the Threefry key (one draw).  Only the paper's ``carry``
     storage mode exists here, as on the reference ``pallas`` backend."""
+    if capped_mode != "carry":
+        raise ValueError(
+            "the cuda sampler backend implements the paper-faithful "
+            "'carry' storage mode only; use backend='numpy' for "
+            "'waterfill'")
     from ..kernels.we_rounds import we_rounds_grid
 
     lam = _lam_rows(lam)
@@ -329,6 +535,14 @@ def work_exchange_panel_cuda(lam: np.ndarray, N: int,
 # ---------------------------------------------------------------------------
 
 register_backend(SamplerBackend(
+    name="numpy",
+    work_exchange_grid=work_exchange_grid_numpy,
+    description="exact integer-unit engine (Generator.gamma/binomial) on "
+                "the host; bit-identical to the reference's numpy backend "
+                "and to the scalar path at trials=1",
+    gamma_rows=gamma_rows_numpy))
+
+register_backend(SamplerBackend(
     name="cuda",
     work_exchange_grid=work_exchange_grid_cuda,
     description="fused we_rounds CUDA kernel (counter-based Threefry bits "
@@ -343,5 +557,6 @@ __all__ = [
     "DEFAULT_BACKEND", "SAMPLER_BACKENDS", "SamplerBackend",
     "register_backend", "get_backend", "list_backends", "resolve_backend",
     "validate_backend", "get_gamma_rows", "bucket_cols", "bucket_rounds",
+    "work_exchange_grid_numpy", "gamma_rows_numpy",
     "work_exchange_grid_cuda", "gamma_rows_cuda", "work_exchange_panel_cuda",
 ]

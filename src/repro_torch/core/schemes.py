@@ -1,49 +1,57 @@
 """Unified ``Scheme`` API of the port: one registry-driven policy surface.
 
-The counterpart of ``repro.core.schemes`` for the paper's six schemes:
+The counterpart of ``repro.core.schemes`` for the paper's six schemes --
 ``oracle``, ``fixed``, ``uniform``, ``mds`` (L optimized), and work
 exchange with known (``work_exchange``) and unknown
-(``work_exchange_unknown``) rates.  Each implements
+(``work_exchange_unknown``) rates -- and ``gradient_coded``.  Each
+implements
 
     plan(het, N)                              -> Assignment
+    simulate(het, N, rng)                     -> RunStats  (one exact trial)
     mc(het, N, trials, rng, device="cuda")    -> MCReport
     mc_grid(het_specs, N, trials, rng, ...)   -> [MCReport, ...]
+    make_scheduler(unit_ids, rates, ...)      -> the executable master
 
 and ``mc_grid_panel`` runs a whole figure panel, with the work-exchange
-known/unknown pair fused into one kernel launch.
+known/unknown pair fused into one kernel launch on the ``cuda`` backend.
 
     >>> rng = np.random.default_rng(0)
     >>> het = HetSpec.uniform_random(50, mu=50.0, sigma2=50**2/6, rng=rng)
     >>> get_scheme("work_exchange").mc(het, N=1_000_000, trials=100, rng=rng)
 
-The host-side numpy draws of ``oracle``, ``fixed``, ``uniform`` stay numpy
-exactly as in the reference (their reports are bit-identical to it); MDS
-and work exchange draw through the sampler backend on ``device``.  Every
-entry point takes ``device=`` (default ``"cuda"``, which raises without a
-card; ``"cpu"`` runs the plain PyTorch versions).
+``simulate`` is the scalar single-trial reference (host numpy, no
+device), and ``engine="loop"`` runs ``mc`` as a loop of it.  The
+host-side numpy draws of ``oracle``, ``fixed``, ``uniform`` and the
+per-trial loops are copied from the reference line for line, so their
+reports are bit-identical to it; MDS and work exchange draw through the
+sampler backend (``cuda`` by default, ``numpy`` for the exact engine).
+Every ``mc`` entry point takes ``device=`` (default ``"cuda"``, which
+raises without a card; ``"cpu"`` runs the plain PyTorch versions).
 
-Not in this slice (each raises ``NotImplementedError``): the scalar
-``simulate`` per-trial path and ``engine="loop"``, ``capped_mode=
-"waterfill"`` (both arrive with the exact numpy backend) and
-``make_scheduler`` (arrives with the ``MasterScheduler`` port).
+The reference's ``het_mds``, ``trace_replay`` and ``hedged`` schemes are
+not ported yet: ``get_scheme`` raises ``NotImplementedError`` for them
+(ROADMAP.md, Queue 1 item 6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Type
+from typing import Dict, List, Literal, Optional, Sequence, Tuple, Type
 
 import numpy as np
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from .assignment import proportional_assignment, uniform_assignment
-from .exchange import Assignment
+from .assignment import (capped_proportional_assignment,
+                         largest_remainder_round, proportional_assignment,
+                         uniform_assignment)
+from .exchange import Assignment, CoverScheduler, MasterScheduler
 from .registry import Registry
 from .samplers import (get_backend, get_gamma_rows, resolve_backend,
                        validate_backend)
 from .types import ExchangeConfig, HetSpec, RunStats
 
-_LATER_NUMPY = ("arrives with the port's exact numpy backend and scalar "
-                "simulate path (see ROADMAP.md)")
+# the reference's schemes still to port, by name and alias
+_LATER_SCHEMES = ("het_mds", "hcmm", "trace_replay", "hedged",
+                  "replicate_slowest", "hedged_requests")
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +79,19 @@ class MCReport:
     t_comp_trials: Optional[np.ndarray] = None
     iterations_trials: Optional[np.ndarray] = None
     n_comm_trials: Optional[np.ndarray] = None
+
+    # legacy ExchangeMC field names (the deprecated ``simulator`` shim)
+    @property
+    def t_std(self) -> float:
+        return self.t_comp_std
+
+    @property
+    def i_std(self) -> float:
+        return self.iterations_std
+
+    @property
+    def c_std(self) -> float:
+        return self.n_comm_std
 
     def to_dict(self, include_trials: bool = True) -> Dict:
         """JSON-able dict in the reference's results-store record format;
@@ -139,6 +160,10 @@ def register_scheme(name: str, *, aliases: Sequence[str] = ()):
 
 def get_scheme(name: str, **params) -> "Scheme":
     """Instantiate a registered scheme by canonical name or alias."""
+    if name in _LATER_SCHEMES and name not in SCHEME_REGISTRY:
+        raise NotImplementedError(
+            f"scheme {name!r} is not ported yet (ROADMAP.md, Queue 1 "
+            f"item 6)")
     return SCHEME_REGISTRY.get(name)(**params)
 
 
@@ -153,15 +178,17 @@ def list_schemes(include_aliases: bool = False) -> List[str]:
 class Scheme:
     """Common surface of every scheduling policy.
 
-    Subclasses implement ``initial_sizes`` and ``mc``; ``mc_grid``
-    defaults to looping ``mc`` over the specs (drawing from the shared
-    ``rng`` in spec order), and schemes with a batched engine override it.
+    Subclasses implement ``initial_sizes`` + ``simulate`` and may override
+    ``mc`` with a trial-vectorized engine; the default ``mc`` loops
+    ``simulate``.
     """
 
     name: str = "abstract"
     plan_wait_all: bool = True    # static schemes wait for the max
     # schemes whose mc/mc_grid accept a per-exchange-round rate_schedule
     supports_rate_schedule: bool = False
+
+    # -- planning -----------------------------------------------------------
 
     def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
         raise NotImplementedError
@@ -176,31 +203,178 @@ class Scheme:
             nxt += int(s)
         return Assignment(queues=queues, wait_all=self.plan_wait_all)
 
+    # -- simulation ---------------------------------------------------------
+
     def simulate(self, het: HetSpec, N: int,
                  rng: np.random.Generator) -> RunStats:
-        raise NotImplementedError(f"{self.name}.simulate {_LATER_NUMPY}")
+        raise NotImplementedError
 
     def mc(self, het: HetSpec, N: int, trials: int,
            rng: np.random.Generator, keep_trials: bool = False,
            backend: Optional[str] = None,
            device=DEFAULT_DEVICE) -> MCReport:
-        raise NotImplementedError(
-            f"{self.name}.mc as a per-trial simulate loop {_LATER_NUMPY}")
+        """Monte-Carlo report over ``trials`` runs of ``simulate``.
+
+        The per-trial loop draws with numpy on the host, but still
+        validates ``backend`` (a typo'd name raises the registry's
+        ``KeyError``) and resolves ``device``, as every ``mc`` does.
+        """
+        validate_backend(backend)
+        resolve_device(device)
+        ts = np.empty(trials)
+        its = np.empty(trials)
+        cs = np.empty(trials)
+        for i in range(trials):
+            s = self.simulate(het, N, rng)
+            ts[i], its[i], cs[i] = s.t_comp, s.iterations, s.n_comm
+        return _report(self.name, ts, its, cs, keep_trials)
 
     def mc_grid(self, het_specs: Sequence[HetSpec], N: int, trials: int,
                 rng: np.random.Generator, keep_trials: bool = False,
                 backend: Optional[str] = None,
                 device=DEFAULT_DEVICE) -> List[MCReport]:
-        """``mc`` over a scenario grid, one ``MCReport`` per spec."""
+        """``mc`` over a scenario grid, one ``MCReport`` per spec (drawing
+        from the shared ``rng`` in spec order); schemes with a batched
+        engine override it."""
         return [self.mc(het, N, trials, rng, keep_trials=keep_trials,
                         backend=backend, device=device)
                 for het in het_specs]
 
-    def make_scheduler(self, unit_ids, rates=None, estimator=None,
-                       threshold_frac=None):
+    # -- executable protocol (training runtimes) -----------------------------
+
+    def make_scheduler(self, unit_ids: Sequence[int],
+                       rates: Optional[np.ndarray] = None,
+                       estimator=None,
+                       threshold_frac: Optional[float] = None
+                       ) -> MasterScheduler:
         raise NotImplementedError(
-            f"{self.name}.make_scheduler arrives with the port of "
-            f"MasterScheduler (repro.core.exchange) in a later slice")
+            f"scheme {self.name!r} has no executable master protocol")
+
+
+# ---------------------------------------------------------------------------
+# scalar single-trial primitives (the reference path)
+# ---------------------------------------------------------------------------
+
+def _iteration_outcome(assign: np.ndarray, lambdas: np.ndarray,
+                       rng: np.random.Generator):
+    """One work-exchange iteration: returns (t_star, done) exactly.
+
+    Poisson-process conditioning: given worker k's n_k-th arrival at T_k,
+    the earlier n_k - 1 epochs are uniform order statistics on (0, T_k), so
+    N_done | T_k ~ Binomial(n_k - 1, T*/T_k) for non-finishing workers.
+    """
+    K = assign.size
+    t_k = np.full(K, np.inf)
+    busy = assign > 0
+    t_k[busy] = rng.gamma(shape=assign[busy], scale=1.0 / lambdas[busy])
+    finisher = int(np.argmin(t_k))
+    t_star = float(t_k[finisher])
+    done = np.zeros(K, dtype=np.int64)
+    done[finisher] = assign[finisher]
+    others = busy.copy()
+    others[finisher] = False
+    if others.any():
+        n = assign[others] - 1
+        p = np.clip(t_star / t_k[others], 0.0, 1.0)
+        done[others] = rng.binomial(np.maximum(n, 0), p)
+    return t_star, done
+
+
+def _final_phase(assign: np.ndarray, lambdas: np.ndarray,
+                 rng: np.random.Generator) -> float:
+    """Below the cutting threshold: assign and wait for ALL workers (max)."""
+    busy = assign > 0
+    if not busy.any():
+        return 0.0
+    t_k = rng.gamma(shape=assign[busy], scale=1.0 / lambdas[busy])
+    return float(t_k.max())
+
+
+def simulate_work_exchange_scalar(het: HetSpec, N: int, cfg: ExchangeConfig,
+                                  rng: np.random.Generator,
+                                  capped_mode: Literal["carry", "waterfill"]
+                                  = "carry",
+                                  rate_schedule: Optional[np.ndarray] = None
+                                  ) -> RunStats:
+    """Algorithms 1 (known het) and 3 (unknown het), single trial.
+
+    ``rate_schedule`` (optional ``(R, K)``) drives drifting scenarios:
+    round ``r``'s service draws use row ``min(r, R - 1)`` while the
+    assignment keeps using the nominal ``het.lambdas`` (known) or the
+    online estimate (unknown) -- the exact per-trial reference the
+    batched engines are validated against.
+    """
+    lam = het.lambdas
+    K = het.K
+    sched = None
+    if rate_schedule is not None:
+        sched = np.asarray(rate_schedule, dtype=np.float64)
+        if sched.ndim != 2 or sched.shape[1] != K:
+            raise ValueError(f"rate_schedule must be (R, K={K}); "
+                             f"got shape {sched.shape}")
+    threshold = cfg.threshold_frac * N / K
+    cap = (np.inf if cfg.storage_cap_frac is None or cfg.known_heterogeneity
+           else int(np.ceil(cfg.storage_cap_frac * N / K)))
+
+    # estimator state (paper eq. 23)
+    est_done = np.zeros(K, dtype=np.float64)
+    est_time = 0.0
+    lam_hat = np.ones(K, dtype=np.float64)
+
+    n_rem = N                       # unassigned + leftover units
+    n_left_prev = np.zeros(K, dtype=np.int64)   # leftover held by workers
+    n_done = np.zeros(K, dtype=np.int64)
+    t_comp = 0.0
+    n_comm = 0.0
+    iters = 0
+    t_iter = []
+
+    while n_rem > threshold and iters < cfg.max_iterations:
+        rates = lam if cfg.known_heterogeneity else lam_hat
+        if np.isinf(cap):
+            assign = proportional_assignment(rates, n_rem)
+        elif capped_mode == "waterfill":
+            assign = capped_proportional_assignment(rates, n_rem, cap)
+        else:  # paper-faithful: plain min(cap, share), carry the remainder
+            share = largest_remainder_round(rates, n_rem)
+            assign = np.minimum(share, cap).astype(np.int64)
+        carried = n_rem - int(assign.sum())    # Algorithm 3 carry-over
+        if assign.sum() == 0:   # degenerate rounding for tiny n_rem
+            break
+        # communication overhead, eq. (1): only units beyond the leftover
+        if iters > 0:
+            n_comm += float(np.maximum(assign - n_left_prev, 0).sum())
+        lam_t = (lam if sched is None
+                 else sched[min(iters, sched.shape[0] - 1)])
+        t_star, done = _iteration_outcome(assign, lam_t, rng)
+        iters += 1
+        t_iter.append(t_star)
+        t_comp += t_star
+        n_done += done
+        n_left_prev = assign - done
+        n_rem = carried + int(n_left_prev.sum())
+        # online estimate, eq. (23)
+        est_done += done
+        est_time += t_star
+        if est_time > 0:
+            lam_hat = np.where(est_done > 0, est_done / est_time, 1.0)
+
+    if n_rem > 0:
+        rates = lam if cfg.known_heterogeneity else lam_hat
+        assign = proportional_assignment(rates, n_rem)
+        if iters > 0:
+            n_comm += float(np.maximum(assign - n_left_prev, 0).sum())
+        lam_t = (lam if sched is None
+                 else sched[min(iters, sched.shape[0] - 1)])
+        t_comp += _final_phase(assign, lam_t, rng)
+        n_done += assign
+        iters += 1
+        t_iter.append(t_iter[-1] if t_iter else t_comp)
+
+    stats = RunStats(t_comp=t_comp, iterations=iters, n_comm=n_comm,
+                     n_done=n_done, t_iter=np.asarray(t_iter))
+    stats.check_work_conserved(N)
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -209,21 +383,24 @@ class Scheme:
 
 def work_exchange_mc_batched(het: HetSpec, N: int, cfg: ExchangeConfig,
                              trials: int, rng: np.random.Generator,
-                             keep_trials: bool = False,
+                             capped_mode: Literal["carry", "waterfill"]
+                             = "carry", keep_trials: bool = False,
                              scheme_name: str = "work_exchange",
                              backend: Optional[str] = None,
                              rate_schedule: Optional[np.ndarray] = None,
                              device=DEFAULT_DEVICE) -> MCReport:
     """All ``trials`` work-exchange runs at once through a sampler
-    backend.  ``rate_schedule`` (optional ``(R, K)``) is the per-round
-    service-rate schedule of the drifting scenarios."""
+    backend.  On ``numpy`` a single trial consumes randomness in exactly
+    the order of ``simulate_work_exchange_scalar``.  ``rate_schedule``
+    (optional ``(R, K)``) is the per-round service-rate schedule of the
+    drifting scenarios."""
     name = resolve_backend(backend)
     dev = resolve_device(device)
     sched = (None if rate_schedule is None
              else np.asarray(rate_schedule, dtype=np.float64)[None, :, :])
     ts, its, cs = get_backend(name).work_exchange_grid(
         het.lambdas[None, :], N, cfg, int(trials), rng,
-        rate_schedule=sched, device=dev)
+        capped_mode=capped_mode, rate_schedule=sched, device=dev)
     return _report(scheme_name, ts, its, cs, keep_trials,
                    extra={"backend": name})
 
@@ -239,6 +416,12 @@ class OracleScheme(Scheme):
     def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
         return proportional_assignment(het.lambdas, N)
 
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator) -> RunStats:
+        t = float(rng.gamma(shape=N, scale=1.0 / het.lambda_sum))
+        return RunStats(t_comp=t, iterations=1, n_comm=0.0,
+                        n_done=self.initial_sizes(het, N))
+
     def mc(self, het: HetSpec, N: int, trials: int,
            rng: np.random.Generator, keep_trials: bool = False,
            backend: Optional[str] = None,
@@ -252,6 +435,12 @@ class OracleScheme(Scheme):
 
 class _StaticScheme(Scheme):
     """Assign once (``initial_sizes``) and wait for the max -- no exchange."""
+
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator) -> RunStats:
+        assign = self.initial_sizes(het, N)
+        t = _final_phase(assign, het.lambdas, rng)
+        return RunStats(t_comp=t, iterations=1, n_comm=0.0, n_done=assign)
 
     def mc(self, het: HetSpec, N: int, trials: int,
            rng: np.random.Generator, keep_trials: bool = False,
@@ -292,6 +481,16 @@ class _StaticScheme(Scheme):
                         keep_trials, extra={"backend": "numpy"})
                 for g in range(len(specs))]
 
+    def _scheduler_rates(self, rates: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def make_scheduler(self, unit_ids, rates=None, estimator=None,
+                       threshold_frac=None) -> MasterScheduler:
+        """One wait-all epoch (threshold 1e9) at the scheme's rates."""
+        rates = self._scheduler_rates(np.asarray(rates, dtype=np.float64))
+        return MasterScheduler(unit_ids, rates.size, rates=rates,
+                               threshold_frac=1e9)
+
 
 @register_scheme("fixed", aliases=("het_static", "fixed_proportional"))
 class FixedScheme(_StaticScheme):
@@ -299,6 +498,9 @@ class FixedScheme(_StaticScheme):
 
     def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
         return proportional_assignment(het.lambdas, N)
+
+    def _scheduler_rates(self, rates: np.ndarray) -> np.ndarray:
+        return rates
 
 
 @register_scheme("uniform", aliases=("equal_static",))
@@ -308,6 +510,9 @@ class UniformScheme(_StaticScheme):
     def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
         return uniform_assignment(het.K, N)
 
+    def _scheduler_rates(self, rates: np.ndarray) -> np.ndarray:
+        return np.ones(rates.size)
+
 
 @register_scheme("mds", aliases=("mds_opt", "mds-opt"))
 class MDSScheme(Scheme):
@@ -316,9 +521,12 @@ class MDSScheme(Scheme):
     (eq. 6) inside ``mc``; ``opt_trials`` bounds that inner sweep.
 
     All candidate L values become extra rows of ONE ``gamma_rows`` call
-    through the sampler backend (the common-random-numbers sweep on the
-    ``cuda`` backend), and ``mc_grid`` batches the whole ``specs x L x
-    trials`` cube the same way.
+    through the sampler backend, and ``mc_grid`` batches the whole ``specs
+    x L x trials`` cube the same way.  On the ``numpy`` backend the cube
+    is drawn independently, in exactly the per-L loop's order, so the
+    chosen L and every sample are bit-identical to ``mds_sweep``; on
+    ``cuda`` it is the common-random-numbers sweep of the reference's
+    transform backends.
     """
 
     def __init__(self, L: Optional[int] = None, opt_trials: int = 64):
@@ -330,9 +538,31 @@ class MDSScheme(Scheme):
             raise ValueError(f"L must be in [1, {K}]; got {self.L}")
         return self.L
 
+    def _resolve_L(self, het: HetSpec, N: int,
+                   rng: np.random.Generator) -> int:
+        if self.L is not None:
+            return self._check_L(het.K)
+        # simulate() is the exact single-trial reference: sweep with the
+        # exact numpy draws, on the host
+        L, _ = mds_sweep_batched(het, N, self.opt_trials, rng,
+                                 backend="numpy", device="cpu")[:2]
+        return L
+
     def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
         L = self.L if self.L is not None else het.K
         return np.full(het.K, int(np.ceil(N / L)), dtype=np.int64)
+
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator) -> RunStats:
+        L = self._resolve_L(het, N, rng)
+        m = int(np.ceil(N / L))
+        t_k = rng.gamma(shape=m, scale=1.0 / het.lambdas)
+        order = np.argsort(t_k, kind="stable")
+        t = float(t_k[order[L - 1]])
+        n_done = np.zeros(het.K, dtype=np.int64)
+        n_done[order[:L]] = m      # the L earliest finishers are decoded
+        return RunStats(t_comp=t, iterations=1,
+                        n_comm=float(m * het.K - N), n_done=n_done)
 
     def mc(self, het: HetSpec, N: int, trials: int,
            rng: np.random.Generator, keep_trials: bool = False,
@@ -343,15 +573,18 @@ class MDSScheme(Scheme):
         if self.L is None:
             # the K-candidate sweep only picks L*: bound its per-candidate
             # budget at opt_trials, then spend the full trial budget on the
-            # winner alone (the coupled sweep's samples are correlated
-            # across candidates, so the winner's always come from a fresh
-            # draw)
-            [L] = _mds_select_L_grid([het], N, min(trials, self.opt_trials),
-                                     rng, name, dev)
+            # winner alone (a coupled sweep's samples are correlated across
+            # candidates, so its winner's always come from a fresh draw)
+            sweep_trials = min(trials, self.opt_trials)
+            [(L, ts)] = _mds_select_L_grid([het], N, sweep_trials, rng,
+                                           name, dev)
+            if ts is None or sweep_trials < trials:
+                ts = mds_time_samples(het, N, L, trials, rng, backend=name,
+                                      device=dev)
         else:
             L = self._check_L(het.K)
-        ts = mds_time_samples(het, N, L, trials, rng, backend=name,
-                              device=dev)
+            ts = mds_time_samples(het, N, L, trials, rng, backend=name,
+                                  device=dev)
         m = int(np.ceil(N / L))
         return _report(self.name, ts, np.ones(trials),
                        np.full(trials, float(m * het.K - N)), keep_trials,
@@ -374,12 +607,15 @@ class MDSScheme(Scheme):
         K = specs[0].K
         T = int(trials)
         if self.L is not None:
-            winners = [self._check_L(K)] * len(specs)
+            selection = [(self._check_L(K), None)] * len(specs)
         else:
-            winners = _mds_select_L_grid(specs, N, min(T, self.opt_trials),
-                                         rng, name, dev)
-        sweep_ts = _mds_order_stat_rows(specs, N, winners, T,
-                                        get_gamma_rows(name), rng, dev)
+            selection = _mds_select_L_grid(specs, N, min(T, self.opt_trials),
+                                           rng, name, dev)
+        winners = [L for L, _ in selection]
+        sweep_ts = [ts for _, ts in selection]
+        if any(ts is None for ts in sweep_ts) or min(T, self.opt_trials) < T:
+            sweep_ts = _mds_order_stat_rows(specs, N, winners, T,
+                                            get_gamma_rows(name), rng, dev)
         return [self._grid_report(specs[g], N, winners[g], sweep_ts[g], T,
                                   keep_trials, name)
                 for g in range(len(specs))]
@@ -394,46 +630,68 @@ class MDSScheme(Scheme):
 
 def _mds_select_L_grid(specs: Sequence[HetSpec], N: int, sweep_trials: int,
                        rng: np.random.Generator, name: str, device
-                       ) -> List[int]:
+                       ) -> List[Tuple[int, Optional[np.ndarray]]]:
     """Pick L* per spec: all candidate L of all specs as grid rows of ONE
-    ``gamma_rows`` dispatch -- the common-random-numbers cube of the
-    reference's transform backends: per spec ONE shared trial axis,
-    candidate Erlangs built as cumulative Gamma increments ``T(m_L) =
-    T(m_{L+1}) + Gamma(m_L - m_{L+1})``, ``ceil(sweep_trials / 2)`` trials
-    (floor 16).  The samples are correlated across candidates, so callers
-    draw the winner's samples afresh.
+    ``gamma_rows`` dispatch.  Returns ``(L*, sweep samples at L*)`` per
+    spec; the samples slot is ``None`` for coupled sweeps (cross-candidate
+    correlated -- callers top up from an independent draw).
+
+    Exact backends run the *independent* cube: spec-major then L-major
+    rows, bit-identical in stream order to looping ``mds_sweep`` per
+    spec.  Coupled backends (``coupled_mds_sweep``) run the
+    common-random-numbers cube: per spec ONE shared trial axis, candidate
+    Erlangs built as cumulative Gamma increments ``T(m_L) = T(m_{L+1}) +
+    Gamma(m_L - m_{L+1})``, ``ceil(sweep_trials / 2)`` trials (floor 16).
     """
-    if not get_backend(name).coupled_mds_sweep:
-        raise NotImplementedError(
-            f"the independent MDS L-sweep of exact backends {_LATER_NUMPY}")
     K = specs[0].K
     G = len(specs)
-    m = np.array([int(np.ceil(N / L)) for L in range(1, K + 1)],
-                 dtype=np.float64)
+    draw = get_gamma_rows(name)
+    cand = list(range(1, K + 1))
+    m = np.array([int(np.ceil(N / L)) for L in cand], dtype=np.float64)
     inv_lam = np.stack([1.0 / h.lambdas for h in specs])
-    ct = max(16, (int(sweep_trials) + 1) // 2)
-    m_asc = m[::-1]                          # ascending m: L = K, K-1, ... 1
-    diffs = np.empty(K)
-    diffs[0] = m_asc[0]
-    diffs[1:] = np.diff(m_asc)
-    # rows spec-major then increment-major, drawn at unit rate; tied
-    # increments (ceil(N/L) ties) draw at shape 1 and are zeroed
-    shape_col = np.tile(np.repeat(np.maximum(diffs, 1.0), ct), G)[:, None]
-    t = get_gamma_rows(name)(shape_col, np.ones((1, K), dtype=np.float32),
-                             rng, device=device)
-    t = t.reshape(G, K, ct, K)
-    t *= (diffs > 0)[None, :, None, None] * inv_lam[:, None, None, :]
-    cube = np.cumsum(t, axis=1)
-    cube.sort(axis=3)                        # cube[g, i] = T at m_asc[i]
-    winners = []
+
+    if get_backend(name).coupled_mds_sweep:
+        ct = max(16, (int(sweep_trials) + 1) // 2)
+        m_asc = m[::-1]                      # ascending m: L = K, K-1, ... 1
+        diffs = np.empty(K)
+        diffs[0] = m_asc[0]
+        diffs[1:] = np.diff(m_asc)
+        # rows spec-major then increment-major, drawn at unit rate; tied
+        # increments (ceil(N/L) ties) draw at shape 1 and are zeroed
+        shape_col = np.tile(np.repeat(np.maximum(diffs, 1.0), ct),
+                            G)[:, None]
+        t = draw(shape_col, np.ones((1, K), dtype=np.float32), rng,
+                 device=device)
+        t = t.reshape(G, K, ct, K)
+        t *= (diffs > 0)[None, :, None, None] * inv_lam[:, None, None, :]
+        cube = np.cumsum(t, axis=1)
+        cube.sort(axis=3)                    # cube[g, i] = T at m_asc[i]
+        out: List[Tuple[int, Optional[np.ndarray]]] = []
+        for g in range(G):
+            best = (1, np.inf)
+            for L in cand:
+                mean_t = float(cube[g, K - L, :, L - 1].mean())
+                if mean_t < best[1]:
+                    best = (L, mean_t)
+            out.append((best[0], None))
+        return out
+
+    sweep_trials = int(sweep_trials)
+    shape_col = np.tile(np.repeat(m, sweep_trials), G)[:, None]
+    scale_rows = np.repeat(inv_lam, K * sweep_trials, axis=0)
+    t = draw(shape_col, scale_rows, rng, device=device)
+    t.sort(axis=1)
+    t = t.reshape(G, K, sweep_trials, K)
+    out = []
     for g in range(G):
-        best = (1, np.inf)
-        for L in range(1, K + 1):
-            mean_t = float(cube[g, K - L, :, L - 1].mean())
-            if mean_t < best[1]:
-                best = (L, mean_t)
-        winners.append(best[0])
-    return winners
+        best_ts: Tuple[int, float, Optional[np.ndarray]] = (1, np.inf, None)
+        for i, L in enumerate(cand):
+            ts = t[g, i, :, L - 1]
+            mean_t = float(ts.mean())
+            if mean_t < best_ts[1]:
+                best_ts = (L, mean_t, ts)
+        out.append((best_ts[0], best_ts[2]))
+    return out
 
 
 def _mds_order_stat_rows(specs: Sequence[HetSpec], N: int,
@@ -467,14 +725,32 @@ def mds_time_samples(het: HetSpec, N: int, L: int, trials: int,
     return t[:, L - 1]
 
 
+def mds_sweep(het: HetSpec, N: int, trials: int, rng: np.random.Generator
+              ) -> Tuple[int, float, np.ndarray]:
+    """Eq. (6) as the per-L reference loop (numpy draws on the host): the
+    baseline ``mds_sweep_batched`` on ``numpy`` is bit-identical to."""
+    best: Tuple[int, float, Optional[np.ndarray]] = (1, np.inf, None)
+    for L in range(1, het.K + 1):
+        m = int(np.ceil(N / L))
+        t = rng.gamma(shape=m, scale=1.0 / het.lambdas,
+                      size=(trials, het.K))
+        t.sort(axis=1)
+        ts = t[:, L - 1]
+        mean_t = float(ts.mean())
+        if mean_t < best[1]:
+            best = (L, mean_t, ts)
+    return best  # type: ignore[return-value]
+
+
 def mds_sweep_batched(het: HetSpec, N: int, trials: int,
                       rng: np.random.Generator,
                       backend: Optional[str] = None,
                       device=DEFAULT_DEVICE
                       ) -> Tuple[int, float, np.ndarray]:
     """Eq. (6) with every candidate L as extra grid rows of ONE batched
-    ``gamma_rows`` draw (rows L-major ``(K * trials, K)``).  Returns
-    ``(L*, E[T(L*)], samples at L*)``."""
+    ``gamma_rows`` draw (rows L-major ``(K * trials, K)``; on ``numpy``
+    bit-identical to ``mds_sweep``).  Returns ``(L*, E[T(L*)], samples
+    at L*)``."""
     name = resolve_backend(backend)
     K = het.K
     m = np.array([int(np.ceil(N / L)) for L in range(1, K + 1)],
@@ -494,7 +770,12 @@ def mds_sweep_batched(het: HetSpec, N: int, trials: int,
 
 
 class _WorkExchangeBase(Scheme):
-    """Shared machinery of the known/unknown work-exchange variants."""
+    """Shared machinery of the known/unknown work-exchange variants.
+
+    ``engine="loop"`` runs ``mc`` as a per-trial loop of the scalar
+    ``simulate`` (the validation reference); ``capped_mode="waterfill"``
+    re-offers units freed by the storage cap to uncapped workers (the
+    ``numpy`` backend and the scalar path only)."""
 
     known: bool = True
     plan_wait_all = False
@@ -502,17 +783,12 @@ class _WorkExchangeBase(Scheme):
 
     def __init__(self, threshold_frac: float = 0.01,
                  storage_cap_frac: Optional[float] = 1.0,
-                 capped_mode: str = "carry",
+                 capped_mode: Literal["carry", "waterfill"] = "carry",
                  max_iterations: int = 10_000,
-                 engine: str = "vectorized"):
-        if engine == "loop":
-            raise NotImplementedError(f"engine='loop' {_LATER_NUMPY}")
-        if engine != "vectorized":
+                 engine: Literal["vectorized", "loop"] = "vectorized"):
+        if engine not in ("vectorized", "loop"):
             raise ValueError(f"unknown engine {engine!r}")
-        if capped_mode == "waterfill":
-            raise NotImplementedError(f"capped_mode='waterfill' "
-                                      f"{_LATER_NUMPY}")
-        if capped_mode != "carry":
+        if capped_mode not in ("carry", "waterfill"):
             raise ValueError(f"unknown capped_mode {capped_mode!r}")
         self.threshold_frac = float(threshold_frac)
         self.storage_cap_frac = storage_cap_frac
@@ -536,13 +812,32 @@ class _WorkExchangeBase(Scheme):
             sizes = np.minimum(sizes, cap)
         return sizes
 
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator,
+                 rate_schedule: Optional[np.ndarray] = None) -> RunStats:
+        return simulate_work_exchange_scalar(het, N, self.config(), rng,
+                                             self.capped_mode,
+                                             rate_schedule=rate_schedule)
+
     def mc(self, het: HetSpec, N: int, trials: int,
            rng: np.random.Generator, keep_trials: bool = False,
            backend: Optional[str] = None,
            rate_schedule: Optional[np.ndarray] = None,
            device=DEFAULT_DEVICE) -> MCReport:
+        if self.engine == "loop":    # the per-trial validation reference
+            if rate_schedule is None:
+                return super().mc(het, N, trials, rng, keep_trials,
+                                  backend=backend, device=device)
+            validate_backend(backend)
+            resolve_device(device)
+            ts, its, cs = (np.empty(trials) for _ in range(3))
+            for i in range(trials):
+                s = self.simulate(het, N, rng, rate_schedule=rate_schedule)
+                ts[i], its[i], cs[i] = s.t_comp, s.iterations, s.n_comm
+            return _report(self.name, ts, its, cs, keep_trials)
         return work_exchange_mc_batched(het, N, self.config(), trials, rng,
-                                        keep_trials, scheme_name=self.name,
+                                        self.capped_mode, keep_trials,
+                                        scheme_name=self.name,
                                         backend=backend,
                                         rate_schedule=rate_schedule,
                                         device=device)
@@ -553,14 +848,15 @@ class _WorkExchangeBase(Scheme):
                 rate_schedule: Optional[np.ndarray] = None,
                 device=DEFAULT_DEVICE) -> List[MCReport]:
         """One engine dispatch for the whole ``(het_specs) x trials``
-        batch.  Mixed-K grids fall back to the per-spec loop.
-        ``rate_schedule`` (optional ``(G, R, K)``) is the drifting-scenario
-        contract: service draws follow it, assignments stay nominal /
-        estimated."""
+        batch.  Mixed-K grids and the ``engine="loop"`` reference fall
+        back to the per-spec loop.  ``rate_schedule`` (optional ``(G, R,
+        K)``) is the drifting-scenario contract: service draws follow it,
+        assignments stay nominal / estimated."""
         specs = list(het_specs)
         sched = (None if rate_schedule is None
                  else np.asarray(rate_schedule, dtype=np.float64))
-        if not specs or len({h.K for h in specs}) != 1:
+        if (self.engine == "loop" or not specs
+                or len({h.K for h in specs}) != 1):
             return [self.mc(het, N, trials, rng, keep_trials=keep_trials,
                             backend=backend, device=device,
                             rate_schedule=None if sched is None
@@ -569,10 +865,26 @@ class _WorkExchangeBase(Scheme):
         name = resolve_backend(backend)
         lam = np.stack([h.lambdas for h in specs])
         arrays = get_backend(name).work_exchange_grid(
-            lam, N, self.config(), int(trials), rng, rate_schedule=sched,
+            lam, N, self.config(), int(trials), rng,
+            capped_mode=self.capped_mode, rate_schedule=sched,
             device=resolve_device(device))
         return _grid_reports(self.name, specs, int(trials), arrays,
                              keep_trials, name)
+
+    def make_scheduler(self, unit_ids, rates=None, estimator=None,
+                       threshold_frac=None) -> MasterScheduler:
+        """Algorithm 1 at the given rates (known), or Algorithm 3 with
+        ``estimator`` (unknown; a fresh cumulative one when None)."""
+        thr = self.threshold_frac if threshold_frac is None else threshold_frac
+        if self.known:
+            rates = np.asarray(rates, dtype=np.float64)
+            return MasterScheduler(unit_ids, rates.size, rates=rates,
+                                   threshold_frac=thr,
+                                   storage_cap_frac=self.storage_cap_frac)
+        K = np.asarray(rates).size
+        return MasterScheduler(unit_ids, K, rates=None, estimator=estimator,
+                               threshold_frac=thr,
+                               storage_cap_frac=self.storage_cap_frac)
 
 
 @register_scheme("work_exchange", aliases=("work_exchange_known", "we_known"))
@@ -596,12 +908,15 @@ class WorkExchangeUnknownScheme(_WorkExchangeBase):
 
 def _panel_pair(schemes: Dict[str, Scheme]) -> Optional[Tuple[str, str]]:
     """The fusable known/unknown work-exchange pair of a panel, or None:
-    the first known and the first unknown ``_WorkExchangeBase``, sharing
+    the first known and the first unknown ``_WorkExchangeBase`` on the
+    vectorized engine with the paper's ``carry`` capped mode, sharing
     ``threshold_frac`` and ``max_iterations`` (the fused launch runs one
     round loop for both)."""
     known_key = unknown_key = None
     for key, sch in schemes.items():
-        if not isinstance(sch, _WorkExchangeBase):
+        if (not isinstance(sch, _WorkExchangeBase)
+                or sch.engine != "vectorized"
+                or sch.capped_mode != "carry"):
             continue
         if sch.known and known_key is None:
             known_key = key
@@ -623,8 +938,9 @@ def mc_grid_panel(schemes: Dict[str, Scheme], het_specs: Sequence[HetSpec],
                   device=DEFAULT_DEVICE) -> Dict[str, List[MCReport]]:
     """A whole figure panel -- ordered ``report_key -> Scheme`` -- over the
     scenario grid, with the work-exchange known/unknown pair fused into
-    ONE kernel launch (known rows stacked on unknown rows with a per-row
-    flag).  Everything else runs its own ``mc_grid``.
+    ONE kernel launch where the backend has a panel engine (``cuda``:
+    known rows stacked on unknown rows with a per-row flag).  Everything
+    else runs its own ``mc_grid``.
 
     ``rng`` is either one Generator (each scheme gets a child stream
     derived in input order, as in the reference) or a ``key -> Generator``
@@ -643,7 +959,8 @@ def mc_grid_panel(schemes: Dict[str, Scheme], het_specs: Sequence[HetSpec],
         child = {key: np.random.default_rng(rng.integers(0, 2**63))
                  for key in schemes}
     pair = (_panel_pair(schemes)
-            if specs and len({h.K for h in specs}) == 1 else None)
+            if panel_fn is not None and specs
+            and len({h.K for h in specs}) == 1 else None)
     sched = (None if rate_schedule is None
              else np.asarray(rate_schedule, dtype=np.float64))
     fused: Dict[str, List[MCReport]] = {}
@@ -671,10 +988,71 @@ def mc_grid_panel(schemes: Dict[str, Scheme], het_specs: Sequence[HetSpec],
     return out
 
 
+# ---------------------------------------------------------------------------
+# coded scheme
+# ---------------------------------------------------------------------------
+
+@register_scheme("gradient_coded")
+class GradientCodedScheme(Scheme):
+    """Fractional-repetition coding translated to the unit-count model:
+    each unit is replicated s+1 times; the run completes at the earliest
+    time the finished workers jointly cover all N units (no reassignment,
+    no coordination -- redundancy instead of exchange)."""
+
+    # make_scheduler returns a one-shot CoverScheduler (whole-queue
+    # finish-time feedback), not a MasterScheduler: training executors
+    # branch on it
+    cover_scheduler = True
+
+    def __init__(self, s: int = 1):
+        self.s = int(s)
+
+    def _coding(self, het: HetSpec):
+        from .coded import GradientCoding
+        K = het.K - het.K % (self.s + 1)    # FR needs (s+1) | K; drop extras
+        if K < self.s + 1:
+            raise ValueError(f"need >= {self.s + 1} workers for s={self.s}")
+        return GradientCoding(K=K, s=self.s), K
+
+    def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
+        gc, K = self._coding(het)
+        sizes = np.zeros(het.K, dtype=np.int64)
+        sizes[:K] = [len(o) for o in gc.assignment(N)]
+        return sizes
+
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator) -> RunStats:
+        gc, K = self._coding(het)
+        owners = gc.assignment(N)
+        sizes = np.array([len(o) for o in owners], dtype=np.int64)
+        t_k = rng.gamma(shape=np.maximum(sizes, 1),
+                        scale=1.0 / het.lambdas[:K])
+        order = np.argsort(t_k, kind="stable")
+        covered: set = set()
+        n_done = np.zeros(het.K, dtype=np.int64)
+        t_done = float(t_k[order[-1]])
+        for w in order:
+            fresh = set(owners[w]) - covered
+            covered |= fresh
+            n_done[w] = len(fresh)          # credit first replica to finish
+            if len(covered) == N:
+                t_done = float(t_k[w])
+                break
+        return RunStats(t_comp=t_done, iterations=1,
+                        n_comm=float(sizes.sum() - N), n_done=n_done)
+
+    def make_scheduler(self, unit_ids, rates=None, estimator=None,
+                       threshold_frac=None) -> CoverScheduler:
+        """A ``CoverScheduler`` over ``len(rates)`` workers."""
+        K = np.asarray(rates, dtype=np.float64).size
+        return CoverScheduler(unit_ids, K, s=self.s)
+
+
 __all__ = [
     "MCReport", "Scheme", "SCHEME_REGISTRY", "register_scheme",
-    "get_scheme", "list_schemes", "OracleScheme", "FixedScheme",
-    "UniformScheme", "MDSScheme", "WorkExchangeScheme",
-    "WorkExchangeUnknownScheme", "work_exchange_mc_batched",
-    "mds_time_samples", "mds_sweep_batched", "mc_grid_panel",
+    "get_scheme", "list_schemes", "simulate_work_exchange_scalar",
+    "work_exchange_mc_batched", "mc_grid_panel", "mds_sweep",
+    "mds_sweep_batched", "mds_time_samples",
+    "OracleScheme", "FixedScheme", "UniformScheme", "MDSScheme",
+    "WorkExchangeScheme", "WorkExchangeUnknownScheme", "GradientCodedScheme",
 ]

@@ -106,6 +106,12 @@ class RunStats:
     n_done: np.ndarray         # per-worker totals, shape (K,)
     t_iter: Optional[np.ndarray] = None  # per-iteration durations
 
+    def check_work_conserved(self, N: int) -> None:
+        total = int(round(float(self.n_done.sum())))
+        if total != N:
+            raise AssertionError(
+                f"work conservation violated: processed {total} of {N}")
+
 
 @dataclasses.dataclass(frozen=True)
 class ExchangeConfig:

@@ -629,3 +629,33 @@ def test_engine_sums_are_order_invariant_on_the_card(cuda_device):
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
         assert x.dtype == torch.float32 and x.is_cuda
         assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_het_trainer_is_bitwise_across_policies_on_the_card(cuda_device):
+    """``HetTrainer`` on the recurrentgemma smoke config in bfloat16, on
+    the card: two steps of 8 units under each of the five policies, each
+    from the same seeded weights, end on bitwise equal parameters, and a
+    step launches 8 x a unit's kernels (flash once a local-attention
+    layer, the scan twice an RG-LRU layer; no remat)."""
+    from repro_torch.distributed import POLICIES, HetTrainer
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(smoke_config(get_config("recurrentgemma-2b")),
+                              dtype="bfloat16")
+    m = build_model(cfg)
+    store = UnitStore(1, 32, cfg.vocab_size, structured=True)
+    kinds = cfg.layer_kinds()
+    finals = []
+    for policy in POLICIES:
+        trainer = HetTrainer(m, AdamW(lr=1e-3), [1.0, 4.0, 2.0, 8.0], store,
+                             policy=policy, units_per_step=8)
+        reset_launch_counts()
+        params, _, hist = trainer.train(m.init(0, cuda_device), 2)
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS["flash_attention"] == 2 * 8 * kinds.count("attn")
+        assert LAUNCH_COUNTS["linear_scan"] == 2 * 8 * 2 * kinds.count("rec")
+        assert all(np.isfinite(h.loss) for h in hist)
+        finals.append(list(tree_leaves(params)))
+    for other in finals[1:]:
+        for x, y in zip(finals[0], other):
+            assert torch.equal(x, y)

@@ -69,6 +69,8 @@ def _imported_modules(path: Path):
 def test_source_imports_no_jax_and_no_repro():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 40
+    for sub in ("core", "distributed", "hettrain"):
+        assert any(p.parent == PKG / sub for p in files), sub
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
@@ -127,6 +129,42 @@ def test_training_runs_with_jax_and_repro_blocked():
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok', hist[-1]['loss'])\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_het_training_runs_with_jax_and_repro_blocked():
+    """The heterogeneous-training subsystem (the master protocol, the
+    policies, ``HetTrainer`` with a compressor, the runner) imports and
+    runs on the CPU at the ``tiny`` preset where importing ``jax`` or
+    ``repro`` fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import math\n"
+        "import numpy as np\n"
+        "from repro_torch.core import HetSpec\n"
+        "from repro_torch.distributed import HetTrainer, Int8Compressor\n"
+        "from repro_torch.hettrain import TrainConfig, run_training_grid\n"
+        "train = TrainConfig(model='tiny', steps=2)\n"
+        "model, params = train.build_model('cpu')\n"
+        "rates = np.array([1.0, 4.0, 2.0, 8.0])\n"
+        "for comp in (None, Int8Compressor()):\n"
+        "    t = HetTrainer(model, train.build_optimizer(), rates, "
+        "train.build_store(), policy='work_exchange_online', "
+        "units_per_step=8, compressor=comp)\n"
+        "    _, _, hist = t.train(params, 1)\n"
+        "    assert math.isfinite(hist[0].loss) and hist[0].grad_bytes > 0\n"
+        "[rep] = run_training_grid('gradient_coded', {}, [HetSpec(rates)], "
+        "train, 4, 2, 0, device='cpu')\n"
+        "assert len(rep.extra['training']['loss_curve']) == 2\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+        "for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok', rep.t_comp)\n")
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
