@@ -198,14 +198,55 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     ``run_training_grid`` for the seven ported schemes at
     ``TrainConfig(model="small", steps=4)`` on the card (2 points x 2
     trials): loss curves bitwise equal across schemes and within 1e-3
-    relative of the same call on the CPU plain path.
+    relative of the same call on the CPU plain path;
+23. the experiment layer (``repro_torch.experiments``), every store it
+    writes a temporary one: (i) each committed ``results/store`` entry's
+    spec, read by the port, hashes to its file name, the serving and live
+    ones raise ``NotImplementedError`` naming ROADMAP.md's Queue 1 items
+    9 and 10, and each batch Monte-Carlo entry (fig5, fig6, fig7, their
+    ``-quick`` cuts, the ``mc`` demo-live; all numpy) rerun through
+    ``run_experiment(..., device="cuda")`` gives every stored report
+    field with ``==``; (ii) fig5, fig6 and fig7 at paper scale (K = 50,
+    N = 1e6; the figures' own specs, seeds and trials, built by this
+    script's copies of ``benchmarks/fig{5,6,7}.py``'s spec functions, held to
+    hash to the stored entries) on ``cuda``: the 36 paper claims, each
+    report's mean ``t_comp`` within 6 combined SE (or 2e-3 relative) of
+    the stored numpy one, and fig5 with ``panel="fused"`` in one
+    ``we_rounds`` launch, its other four tasks equal to ``per_scheme``'s;
+    walls on ``cuda`` and numpy (host clock, warm minimum of 2) and the
+    device's busy share of one profiled fig5 run; (iii) the ``drifting``
+    and ``trace`` demos and the three ``hcmm_sweep`` specs on ``cuda``:
+    every launch of a drifting grid carries its rate schedule,
+    single-shot schemes are stamped ``nominal_rates_only``, the
+    work-exchange rows within 6 SE of the same specs on numpy and the
+    host-drawn ones (``hedged``, ``het_mds``, ``trace_replay``, ``fixed``)
+    equal to them; (iv) the three ``fig-train-*`` entries on the card:
+    every stored scheduling field exact (those in ``ULP_FIELDS`` within 8
+    ulps, the worst gap of each printed), every field of the port's own
+    run of the spec on the CPU but the losses exact (``steps_to_target``
+    and ``wall_to_target`` included) and the losses within
+    ``TRAIN_CURVE_RTOL`` (1e-5) of it, the loss curves bitwise equal
+    across the five schemes (the stored curves come from the JAX
+    package's own weights, which the port does not draw, so the fields
+    that follow the loss are not held to the store); (v) ``python -m
+    repro_torch.experiments --demo quick --check-cache`` in a subprocess
+    on a fresh store, which must print ``computed in`` and then
+    ``check-cache: OK``.  The launch counts
+    are zeroed just before each run and read just after; every launch's
+    inputs are recorded, and each path's largest ``we_rounds`` launch (and
+    the training path's first flash launch) is replayed against the plain
+    version and timed.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
 path and one for each training path; on a training path each entry also
 names its ``backward`` and times it, ``backward_ms``; the
-heterogeneous-training path's entries also give ``launches_per_step``)
-and, last, ``{"ok": true,
+heterogeneous-training path's entries also give ``launches_per_step``;
+phase 23 adds ``we_rounds`` entries for ``experiments fig5``, ``fig6``,
+``fig7`` and ``scenario families`` and a flash entry for ``experiments
+fig-train``, each with ``runs``, the number of experiment runs it read:
+a ``we_rounds`` entry's ``launches`` are those runs' sum, the flash
+entry's those of one run, each of its 3 runs the same) and, last, ``{"ok": true,
 "device": {...}}``.  Any failed phase exits non-zero with no result line;
 without a CUDA device it exits 1 at once.
 
@@ -220,6 +261,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -320,6 +362,31 @@ RUNNER_CPU_RTOL = 1e-3
 # bytes, below int8's 1 byte a parameter for each of the ~15 worker
 # groups of a step.  The bound is held in bytes: 0.3 x float32's 4
 INT8_BYTES_PER_PARAM = 1.2
+# phase 23: the experiment layer.  The paper's Figure 5 panel
+# (``benchmarks/common.py``'s FIG_SCHEMES), the store entries' training
+# specs, and the float32 rate outside the tensor cores (H100 SXM data
+# sheet) that bounds the float32 FMA flash design on that path
+FIG_SCHEMES = ("mds", "fixed", "work_exchange", "work_exchange_unknown",
+               "het_mds", "hedged")
+WE_PAIR = ("work_exchange", "work_exchange_unknown")
+FIG_TRAIN = ("fig-train-stationary", "fig-train-drifting", "fig-train-trace")
+FP32_FLOPS_PER_S = 67e12
+# a stored training row's float fields that are means or deviations over
+# trials or steps of host numpy sums: the host that wrote the store summed
+# some of them in another order.  The JAX package rerun on a CPU host
+# (numpy 2.0.2, as the store's) gives the port's bits, 1-2 ulps from the
+# store's in the per-step means and up to 8 in a deviation
+# (``tests/test_torch_experiments.py`` holds both), so these are held
+# within 8 ulps of the store (the card's host, numpy 2.3.5, reads the
+# same); every other scheduling field exactly.  The fields that follow
+# the loss are held against the port's own CPU run
+ULP_FIELDS = ("t_comp_std", "t_comp_per_step")
+STORE_ULPS = 8
+LOSS_FIELDS = ("loss_curve", "final_loss", "steps_to_target",
+               "wall_to_target")
+# the fig-train losses on the card against the port's CPU run of the same
+# spec: read 2.801e-6 (float32 products and sums in another order)
+TRAIN_CURVE_RTOL = 1e-5
 REPLACES = {"linear_scan": "src/repro/kernels/linear_scan/kernel.py:22",
             "flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:30",
@@ -415,6 +482,166 @@ def off16(torch, x):
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the paper figures' spec functions, rows and claims, as
+# benchmarks/fig5.py, fig6.py and fig7.py have them (benchmarks/ imports
+# the JAX package, so the script keeps its own copy; phase 23 checks that
+# each copy's numpy spec hashes to the figure's committed store entry)
+# ---------------------------------------------------------------------------
+
+def fig5_experiment(ex, backend=None, panel="per_scheme", quick=False):
+    mus = MUS[:2] if quick else MUS
+    points = [(mu, frac * mu * mu, int(mu)) for mu in mus
+              for _, frac in SIGMA_FRACS]
+    return ex.ExperimentSpec(
+        name="fig5-quick" if quick else "fig5",
+        grid=ex.ScenarioGrid(K=K_PAPER, points=points),
+        schemes=tuple(ex.scheme_spec(name) for name in FIG_SCHEMES),
+        N=N_PAPER, trials=20, seed=1234, backend=backend, panel=panel)
+
+
+def fig5_rows(result):
+    points = result.spec.grid.points
+    hets = result.spec.grid.specs()
+    n = result.spec.N
+    rows = [{"mu": mu, "sigma2": "0" if sigma2 == 0 else "mu^2/6",
+             "lambda_sum": het.lambda_sum, "oracle": n / het.lambda_sum}
+            for (mu, sigma2, _), het in zip(points, hets)]
+    for name in result.keys():
+        for row, rep in zip(rows, result.report(name)):
+            row[name] = rep.t_comp
+            if "L" in rep.extra:
+                row[f"{name}_L"] = int(rep.extra["L"])
+    for row in rows:
+        for old, new in (("mds_opt", "mds"), ("we_known", "work_exchange"),
+                         ("we_unknown", "work_exchange_unknown")):
+            if new in row:
+                row[old] = row[new]
+    return rows
+
+
+def fig5_validate(rows):
+    checks = []
+    for r in rows:
+        tag = f"fig5[mu={r['mu']},s2={r['sigma2']}]"
+        checks.append((f"{tag} WE-known within 5% of oracle",
+                       r["we_known"] <= 1.05 * r["oracle"]))
+        checks.append((f"{tag} WE-unknown within 10% of oracle",
+                       r["we_unknown"] <= 1.10 * r["oracle"]))
+        if r["sigma2"] != "0":
+            checks.append((f"fig5[mu={r['mu']}] MDS >= WE at high sigma^2",
+                           r["mds_opt"] >= r["we_known"]))
+        checks.append((f"{tag} fixed >= oracle",
+                       r["fixed"] >= r["oracle"] * 0.999))
+    return checks
+
+
+FIG6_MU, FIG6_SIGMA2S = 50.0, (0.0, 166.0, 333.0, 500.0, 666.0, 833.0)
+FIG6_VARIANTS = (("known", "work_exchange"),
+                 ("unknown", "work_exchange_unknown"))
+
+
+def fig6_experiment(ex, backend=None, quick=False):
+    sigma2s = FIG6_SIGMA2S[::2] if quick else FIG6_SIGMA2S
+    n_draws = 5 if quick else 20
+    points = [(FIG6_MU, sigma2, 1000 + d)
+              for sigma2 in sigma2s for d in range(n_draws)]
+    return ex.ExperimentSpec(
+        name="fig6-quick" if quick else "fig6",
+        grid=ex.ScenarioGrid(K=K_PAPER, points=points),
+        schemes=tuple(ex.scheme_spec(name, key=label, threshold_frac=0.01)
+                      for label, name in FIG6_VARIANTS),
+        N=N_PAPER, trials=4, seed=2024, backend=backend)
+
+
+def fig6_rows(result):
+    n = result.spec.N
+    sigma2s = sorted({s2 for _, s2, _ in result.spec.grid.points})
+    n_draws = len(result.spec.grid) // len(sigma2s)
+    rows = []
+    for i, sigma2 in enumerate(sigma2s):
+        cell = slice(i * n_draws, (i + 1) * n_draws)
+        comm = {lbl: np.array([r.n_comm / n
+                               for r in result.report(lbl)[cell]])
+                for lbl, _ in FIG6_VARIANTS}
+        iters = {lbl: np.array([r.iterations
+                                for r in result.report(lbl)[cell]])
+                 for lbl, _ in FIG6_VARIANTS}
+        rows.append({"sigma2": sigma2,
+                     "comm_known": float(comm["known"].mean()),
+                     "comm_unknown": float(comm["unknown"].mean()),
+                     "iters_known": float(iters["known"].mean()),
+                     "iters_unknown": float(iters["unknown"].mean())})
+    return rows
+
+
+def fig6_validate(rows):
+    first, last = rows[0], rows[-1]
+    return [("fig6a known-het comm ~ 0 at every sigma^2",
+             all(r["comm_known"] < 0.02 for r in rows)),
+            ("fig6a unknown-het comm grows with sigma^2",
+             last["comm_unknown"] > first["comm_unknown"]),
+            ("fig6b iterations grow with sigma^2 (unknown)",
+             last["iters_unknown"] >= first["iters_unknown"]),
+            ("fig6b known <= unknown iterations at high sigma^2",
+             last["iters_known"] <= last["iters_unknown"] + 1)]
+
+
+FIG7_MU, FIG7_SIGMA2S = 50.0, (0.0, 277.0, 833.0)
+FIG7_THRESH_FRACS = (0.001, 0.005, 0.01, 0.05, 0.2, 0.5)
+
+
+def fig7_experiment(ex, backend=None, quick=False):
+    fracs = FIG7_THRESH_FRACS[::2] if quick else FIG7_THRESH_FRACS
+    sigma2s = FIG7_SIGMA2S[::2] if quick else FIG7_SIGMA2S
+    points = [(FIG7_MU, sigma2, int(sigma2) + 7) for sigma2 in sigma2s]
+    return ex.ExperimentSpec(
+        name="fig7-quick" if quick else "fig7",
+        grid=ex.ScenarioGrid(K=K_PAPER, points=points),
+        schemes=tuple(ex.scheme_spec("work_exchange_unknown",
+                                     key=f"th={frac}", threshold_frac=frac,
+                                     seed=int(frac * 1e6))
+                      for frac in fracs),
+        N=N_PAPER, trials=8, backend=backend)
+
+
+def fig7_rows(result):
+    n = result.spec.N
+    hets = result.spec.grid.specs()
+    sigma2s = [s2 for _, s2, _ in result.spec.grid.points]
+    rows = []
+    for key in result.keys():
+        frac = float(key.split("=", 1)[1])
+        for sigma2, het, rep in zip(sigma2s, hets, result.report(key)):
+            rows.append({"sigma2": sigma2, "threshold_frac": frac,
+                         "iters": rep.iterations,
+                         "t_comp_over_oracle":
+                             rep.t_comp / (n / het.lambda_sum)})
+    return rows
+
+
+def fig7_validate(rows):
+    checks = []
+    by_sigma = {}
+    for r in rows:
+        by_sigma.setdefault(r["sigma2"], []).append(r)
+    for sigma2, rs in by_sigma.items():
+        rs = sorted(rs, key=lambda r: r["threshold_frac"])
+        checks.append((f"fig7[s2={sigma2}] I non-increasing in threshold",
+                       all(rs[i]["iters"] >= rs[i + 1]["iters"] - 0.5
+                           for i in range(len(rs) - 1))))
+    default = [r for r in rows if r["threshold_frac"] == 0.01]
+    if default:
+        checks.append(("fig7 default threshold keeps T within 10% of oracle",
+                       all(r["t_comp_over_oracle"] < 1.10 for r in default)))
+    return checks
+
+
+FIGURES = {"fig5": (fig5_experiment, fig5_rows, fig5_validate),
+           "fig6": (fig6_experiment, fig6_rows, fig6_validate),
+           "fig7": (fig7_experiment, fig7_rows, fig7_validate)}
 
 
 def fig5_specs(HetSpec):
@@ -514,6 +741,15 @@ def compare(torch, got, want):
                     mean_gap_se=float(gap))
 
 
+def mean_gap(a, b):
+    """|mean_a - mean_b| of two reports in combined standard errors, and
+    whether it is within 6 of them or 2e-3 of b (``mean_close``'s rule)."""
+    se = np.hypot(a.t_comp_std / np.sqrt(a.trials),
+                  b.t_comp_std / np.sqrt(b.trials))
+    d = abs(a.t_comp - b.t_comp)
+    return d / max(se, 1e-300), d < max(MEAN_SE * se, 2e-3 * b.t_comp)
+
+
 def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     """Unmasked (query, key) pairs of one sequence and head: the work the
     attention function needs on these shapes."""
@@ -523,13 +759,18 @@ def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def flash_bound(q, k, window: int):
-    """(bound ms, bound_by, flops, bytes) of causal windowed attention on
-    q (B, Sq, Hq, d) and k, v (B, Sk, Hkv, d)."""
+def flash_bound(q, k, window: int, causal: bool = True):
+    """(bound ms, bound_by, flops, bytes) of windowed attention on q (B,
+    Sq, Hq, d) and k, v (B, Sk, Hkv, d), at the tensor cores' bf16 rate
+    or, for float32 inputs, the FMA units' rate."""
+    import torch
     B, Sq, Hq, d = q.shape
-    flops = 4.0 * d * Hq * B * attention_pairs(Sq, k.shape[1], True, window)
+    flops = 4.0 * d * Hq * B * attention_pairs(Sq, k.shape[1], causal,
+                                               window)
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, o; k, v
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    rate = FP32_FLOPS_PER_S if q.dtype == torch.float32 \
+        else BF16_FLOPS_PER_S
+    ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), \
         "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes
@@ -700,6 +941,24 @@ def time_flash(torch, qkv, window: int):
           f"host's launch cost (no device sleep): kernel {f_launch:.4f} ms, "
           f"sdpa {lib_launch:.4f} ms")
     return f_ms, f_plain, f_lib, f_bound, f_by
+
+
+def we_rounds_bound(rows, out, extra=()):
+    """(bound ms, bound_by, int ops, bytes) of one ``we_rounds`` launch on
+    rates ``rows`` (B, K) that gave ``out`` (B, 3), from this run's
+    rounds: every busy cell-round needs its Gamma and Binomial Threefry
+    pairs (a loose floor: no boost pairs, transcendentals or reductions,
+    every lane useful).  Bytes: the rows, the output and the ``extra``
+    tensors (a rate schedule, panel flags; None skipped), each once."""
+    rounds = float((out[:, 1].double()
+                    * (rows > 0).sum(dim=1).double()).sum())
+    ops = rounds * 2 * THREEFRY_INT_OPS
+    nbytes = 4 * (rows.numel() + out.numel()
+                  + sum(t.numel() for t in extra if t is not None))
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), \
+        "operations" if ops_ms >= bytes_ms else "bytes", ops, nbytes
 
 
 def gmm_bound(E: int, C: int, D: int, F: int, elem: int):
@@ -2166,14 +2425,6 @@ def exact_oracle_phase(torch, dev, points, specs):
           f"trials) "
           + ", ".join(f"{n} {s * 1e3:.3f} ms" for n, s in loop_s.items()))
 
-    def gap(a, b):
-        """|mean_a - mean_b| in combined standard errors, and whether it
-        is within 6 of them or 2e-3 of b (``mean_close``'s rule)."""
-        se = np.hypot(a.t_comp_std / np.sqrt(a.trials),
-                      b.t_comp_std / np.sqrt(b.trials))
-        d = abs(a.t_comp - b.t_comp)
-        return d / max(se, 1e-300), d < max(MEAN_SE * se, 2e-3 * b.t_comp)
-
     print("  mu     sigma2   oracle_exact " + " ".join(
         f"{n[:14]:>14s}" for n in EXACT_SCHEMES) + "   (numpy; cuda gap / "
         "loop gap in SE)")
@@ -2187,7 +2438,7 @@ def exact_oracle_phase(torch, dev, points, specs):
             if n in loops:
                 pairs.append(("loop", loops[n][g]))
             for kind, other in pairs:
-                se_gap, ok = gap(other, exact[n][g])
+                se_gap, ok = mean_gap(other, exact[n][g])
                 worst[kind] = max(worst[kind], se_gap)
                 gaps.append(f"{se_gap:.2f}" if kind == "cuda"
                             else f"/{se_gap:.2f}")
@@ -2617,6 +2868,438 @@ def het_phases(torch, dev):
     return entries
 
 
+@contextlib.contextmanager
+def recorded_calls(module, name: str):
+    """Run every call of ``module.name`` -- a kernel wrapper as its op
+    module binds it -- through, keeping each call's arguments: the inputs
+    the main path handed the kernel.  The wrapper still counts its own
+    launches."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def we_rounds_entry(torch, path: str, launches: int, runs: int,
+                    calls) -> tuple:
+    """(bitwise, the kernels line's ``we_rounds`` entry) for one
+    experiment path of ``runs`` runs that made ``launches`` launches in
+    all: the largest launch, replayed through the kernel and its plain
+    version on the same inputs, timed (warm minimum of 3) against the
+    bound from this run's rounds."""
+    from repro_torch.kernels.we_rounds import kernel as wk
+    from repro_torch.kernels.we_rounds import ref as wref
+    (rows, seed, sched, flags), kw = max(calls,
+                                         key=lambda c: c[0][0].shape[0])
+    base = {k: kw[k] for k in ("n0", "threshold", "cap", "max_iter")}
+
+    def kernel():
+        return wk.we_rounds_cuda(rows, seed, sched, flags, **kw)
+
+    def plain():
+        if flags is not None:
+            cols = wref.we_rounds_reference_panel(rows, seed, flags, sched,
+                                                  **base)
+        else:
+            cols = wref.we_rounds_reference(rows, seed, sched,
+                                            known=kw["known"], **base)
+        return torch.stack(cols, dim=1)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+    bound, by, _, _ = we_rounds_bound(rows, got, (sched, flags))
+    mode = ("panel" if flags is not None else
+            "known" if kw["known"] else "unknown") \
+        + (f", drift R={sched.shape[1]}" if sched is not None else "")
+    print(f"  we_rounds on {path}: {launches} launches in {runs} runs; "
+          f"the largest, "
+          f"{tuple(rows.shape)} ({mode}), kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+          f"({bound / ms:.3f} of it); bitwise {bitwise}, max_abs_err "
+          f"{err:.3e}")
+    return bitwise, {
+        "name": "we_rounds", "path": path, "route": "cuda",
+        "source": "src/repro_torch/csrc/we_rounds.cu",
+        "replaces": "src/repro/kernels/we_rounds/kernel.py:107",
+        "launches": launches, "runs": runs, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}
+
+
+def flash_entry(torch, path: str, launches: int, runs: int,
+                calls) -> tuple:
+    """(ok, the kernels line's ``flash_attention`` entry) for a training
+    path of ``runs`` runs that made ``launches`` launches each: the
+    path's first launch replayed through the kernel, its plain version
+    and ``scaled_dot_product_attention`` on the same inputs, held at
+    ``FLASH_TOL`` and timed (warm minimum of 3)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+    (q, k, v, causal, window, scale), _ = calls[0]
+    q, k, v = (x.detach() for x in (q, k, v))
+
+    def kernel():
+        return flash_attention_cuda(q, k, v, causal, window, scale)
+
+    def plain():
+        return attention_ref(q, k, v, causal, window, scale)
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    dt = str(q.dtype).replace("torch.", "")
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), rtol=FLASH_TOL[dt],
+                             atol=FLASH_TOL[dt]))
+    ms, plain_ms, lib_ms = (cuda_ms(torch, fn) for fn in (kernel, plain,
+                                                           sdpa))
+    bound, by, _, _ = flash_bound(q, k, window, causal)
+    print(f"  flash_attention on {path}: {launches} launches a run "
+          f"({runs} runs) at "
+          f"{tuple(q.shape)} kv {tuple(k.shape)} {dt} causal={causal}: "
+          f"{'ok' if ok else 'FAIL'} max_abs_err {err:.3e} (tol "
+          f"{FLASH_TOL[dt]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_ms:.4f} ms, bound {bound:.6f} ms by {by}")
+    return ok, {
+        "name": "flash_attention", "path": path, "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": REPLACES["flash_attention"], "backward":
+        BACKWARDS["flash_attention"], "launches": launches, "runs": runs,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def flat_fields(tree, prefix=""):
+    """{dotted path: leaf} of a report's nested dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(flat_fields(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def losses_apart(reports: dict) -> tuple:
+    """({dotted path: leaf} of a training spec's reports but the losses,
+    the losses in path order)."""
+    fields = flat_fields(reports)
+    lost = sorted(p for p in fields
+                  if set(p.split(".")) & set(LOSS_FIELDS[:2]))
+    return ({p: v for p, v in fields.items() if p not in lost},
+            np.array([fields[p] for p in lost]))
+
+
+def train_row_problems(got: dict, want: dict, worst_ulps: dict) -> tuple:
+    """A training spec's reports against the stored ones: every field
+    exactly, ``ULP_FIELDS`` within ``STORE_ULPS`` ulps, and the fields
+    that follow the loss (which the port's own weights set) left out.
+    Keeps each ULP field's largest gap in ``worst_ulps``.  Returns
+    (problems, fields held, fields bitwise equal)."""
+    g, w = flat_fields(got), flat_fields(want)
+    keep = [p for p in w if not set(p.split(".")) & set(LOSS_FIELDS)]
+    problems, equal = [], 0
+    for p in keep:
+        a, b = g.get(p), w[p]
+        field = next((f for f in ULP_FIELDS if f in p.split(".")), None)
+        if a == b:
+            equal += 1
+        elif (field and isinstance(a, float) and isinstance(b, float)
+              and abs(a - b) <= STORE_ULPS * np.spacing(abs(b))):
+            worst_ulps[field] = max(worst_ulps.get(field, 0),
+                                    abs(a - b) / np.spacing(abs(b)))
+        else:
+            problems.append(f"{p}: {a!r} against {b!r}")
+    if set(g) != set(w):
+        problems.append(f"fields differ: {sorted(set(g) ^ set(w))[:4]}")
+    return problems, len(keep), equal
+
+
+def experiment_phase(torch, dev):
+    """Phase 23: the experiment layer on the card -- the store as oracle,
+    fig5/6/7 at paper scale on ``cuda``, the other scenario families,
+    training specs through ``run_experiment`` and the CLI.  Returns the
+    kernels line's entries of its paths."""
+    import tempfile
+
+    import repro_torch.experiments as ex
+    from repro_torch.experiments.__main__ import demo_spec, hcmm_demo_specs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.we_rounds import ops as wops
+    problems, entries = [], []
+
+    def run(spec):
+        """One run of ``spec`` on the card, the launch counts zeroed just
+        before and read just after, each launch's inputs recorded."""
+        _build.reset_launch_counts()
+        with recorded_calls(wops, "we_rounds_cuda") as we_calls, \
+                recorded_calls(fops, "flash_attention_cuda") as fl_calls:
+            t0 = time.perf_counter()
+            result = ex.run_experiment(spec, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCH_COUNTS.items() if v}
+        return result, wall, launches, we_calls, fl_calls
+
+    def warm_wall(spec, device):
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ex.run_experiment(spec, device=device)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    # 1. the committed store as oracle
+    stored = {}
+    print(f"experiment layer: numpy {np.__version__}, torch "
+          f"{torch.__version__}")
+    for path in sorted((ROOT / "results" / "store").glob("*.json")):
+        d = json.loads(path.read_text())
+        name = d["spec"]["name"]
+        try:
+            spec = ex.ExperimentSpec.from_dict(d["spec"])
+        except NotImplementedError as e:
+            ok = "items 9 and 10" in str(e)
+            print(f"  store {path.stem[:12]} {name}: "
+                  f"{'refused' if ok else 'FAIL'} ({e})")
+            if not ok:
+                problems.append(f"{name}: {e}")
+            continue
+        if spec.spec_hash() != path.stem:
+            problems.append(f"{name}: spec hash {spec.spec_hash()[:12]} is "
+                            f"not its address {path.stem[:12]}")
+        stored[name] = (spec, d)
+        if spec.training is not None:
+            continue        # step 4
+        t0 = time.perf_counter()
+        got = ex.run_experiment(spec, device=dev).to_dict()["reports"]
+        wall = time.perf_counter() - t0
+        equal = got == d["reports"]
+        print(f"  store {path.stem[:12]} {name} ({spec.backend}): hash ok "
+              f"{spec.spec_hash() == path.stem}, reports bit for bit "
+              f"{equal} ({wall * 1e3:.3f} ms)")
+        if not equal:
+            diffs = [p for p, v in flat_fields(got).items()
+                     if flat_fields(d["reports"]).get(p) != v]
+            problems.append(f"{name}: {len(diffs)} stored fields differ, "
+                            f"first {diffs[:3]}")
+    for fig, (build, _, _) in FIGURES.items():
+        for quick in (False, True):
+            spec = build(ex, backend="numpy", quick=quick)
+            if stored.get(spec.name, (None,))[0] != spec:
+                problems.append(f"the script's {spec.name} spec is not "
+                                f"the stored one")
+
+    # 2. the figures at paper scale on the cuda backend
+    claims, on_cuda = [], {}
+    for fig, (build, rows_from, validate) in FIGURES.items():
+        spec = build(ex, backend="cuda")
+        result, first_s, launches, we_calls, _ = run(spec)
+        checks = validate(rows_from(result))
+        claims += checks
+        want = ex.ExperimentResult.from_dict(stored[fig][1])
+        gaps = [mean_gap(a, b) for key in result.keys()
+                for a, b in zip(result.report(key), want.report(key))]
+        far = sum(not ok for _, ok in gaps)
+        cuda_s = warm_wall(spec, dev)
+        numpy_s = warm_wall(stored[fig][0], "cpu")
+        print(f"  {fig} on cuda (K={K_PAPER} N={N_PAPER}, {len(spec.grid)} "
+              f"points x {spec.trials} trials, {len(spec.schemes)} tasks): "
+              f"launches {launches}; claims {sum(ok for _, ok in checks)}/"
+              f"{len(checks)}; {len(gaps)} reports against the stored "
+              f"numpy ones, worst {max(g for g, _ in gaps):.3f} SE, "
+              f"{far} beyond 6 SE and 2e-3; wall cuda {cuda_s * 1e3:.3f} ms "
+              f"(first {first_s * 1e3:.3f} ms), numpy {numpy_s * 1e3:.3f} "
+              f"ms (host clock, warm min of 2)")
+        if far:
+            problems.append(f"{fig}: {far} reports beyond 6 SE of numpy")
+        if launches.get("we_rounds", 0) < 1:
+            problems.append(f"{fig} launched we_rounds no time")
+        ok, entry = we_rounds_entry(torch, f"experiments {fig}",
+                                    launches.get("we_rounds", 0), 1,
+                                    we_calls)
+        entries.append(entry)
+        if not ok:
+            problems.append(f"we_rounds on {fig}'s inputs is not bitwise "
+                            f"its plain version")
+        on_cuda[fig] = result
+    bad = [name for name, ok in claims if not ok]
+    print(f"  paper-claim checks through run_experiment on cuda: "
+          f"{len(claims) - len(bad)}/{len(claims)} passed")
+    problems += [f"claim failed: {name}" for name in bad]
+
+    fused, fused_s, launches, we_calls, _ = run(
+        fig5_experiment(ex, backend="cuda", panel="fused"))
+    same = all([r.to_dict() for r in fused.report(k)]
+               == [r.to_dict() for r in on_cuda["fig5"].report(k)]
+               for k in FIG_SCHEMES if k not in WE_PAIR)
+    want = ex.ExperimentResult.from_dict(stored["fig5"][1])
+    pair_gaps = [mean_gap(a, b) for k in WE_PAIR
+                 for a, b in zip(fused.report(k), want.report(k))]
+    print(f"  fig5 panel='fused' on cuda: launches {launches} "
+          f"({fused_s * 1e3:.3f} ms); the other four tasks equal "
+          f"per_scheme's: {same}; the pair's worst gap to numpy "
+          f"{max(g for g, _ in pair_gaps):.3f} SE")
+    if launches.get("we_rounds") != 1:
+        problems.append(f"the fused fig5 pair took {launches} launches")
+    if not same or not all(ok for _, ok in pair_gaps):
+        problems.append("the fused fig5 panel disagrees")
+    from torch.profiler import ProfilerActivity, profile
+    fig5_cuda = fig5_experiment(ex, backend="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.run_experiment(fig5_cuda, device=dev)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"  profiled fig5 run on cuda: wall {prof_wall * 1e3:.3f} ms, "
+          + (f"device busy {dev_us / 1e3:.3f} ms "
+             f"({100 * dev_us / (prof_wall * 1e6):.2f}% of wall)"
+             if dev_us > 0 else "the profiler recorded no device time "
+             "(busy share not measured)"))
+
+    # 3. the other scenario families on cuda, against numpy
+    fams = [demo_spec("drifting"), demo_spec("trace")] + hcmm_demo_specs()
+    we_total, sched_calls, fam_calls = 0, 0, []
+    for spec in fams:
+        result, wall, launches, we_calls, _ = run(spec)
+        exact = ex.run_experiment(spec.replace(backend="numpy"),
+                                  device="cpu")
+        we_total += launches.get("we_rounds", 0)
+        fam_calls += we_calls
+        drifts = spec.grid.rate_schedules() is not None
+        with_sched = sum(c[0][2] is not None for c in we_calls)
+        sched_calls += with_sched
+        notes = []
+        scheme_of = {s.report_key: s.scheme for s in spec.schemes}
+        for key in result.keys():
+            sch = scheme_of[key]
+            rows, ref_rows = result.report(key), exact.report(key)
+            finite = all(np.isfinite(r.t_comp) for r in rows)
+            if sch in WE_PAIR:
+                gap_ok = all(mean_gap(a, b)[1]
+                             for a, b in zip(rows, ref_rows))
+            else:       # host draws: the numpy engine's bits
+                gap_ok = ([r.to_dict() for r in rows]
+                          == [r.to_dict() for r in ref_rows])
+            nominal = all(r.extra.get("nominal_rates_only") == 1
+                          for r in rows)
+            if not (finite and gap_ok) or (drifts and nominal
+                                           == (sch in WE_PAIR)):
+                problems.append(f"{spec.name} {key}: finite {finite}, "
+                                f"agrees with numpy {gap_ok}, stamped "
+                                f"nominal {nominal}")
+            notes.append(f"{key} {rows[0].t_comp:.4f}"
+                         + (" [nominal]" if nominal else ""))
+        if drifts and with_sched != launches.get("we_rounds", 0):
+            problems.append(f"{spec.name}: {with_sched} of "
+                            f"{launches.get('we_rounds', 0)} launches had "
+                            f"the rate schedule")
+        print(f"  {spec.name} ({spec.grid.family}) on cuda: launches "
+              f"{launches}, {with_sched} with a rate schedule; "
+              f"{wall * 1e3:.3f} ms; point 0: " + ", ".join(notes))
+    ok, entry = we_rounds_entry(torch, "experiments scenario families",
+                                we_total, len(fams), fam_calls)
+    entries.append(entry)
+    if not ok:
+        problems.append("we_rounds on the families' inputs is not bitwise")
+    if sched_calls < 4:
+        problems.append(f"only {sched_calls} launches carried a schedule")
+
+    # 4. the stored training specs through the layer
+    fl_counts, fl_calls, worst_ulps = [], [], {}
+    for name in FIG_TRAIN:
+        spec, d = stored[name]
+        result, wall, launches, _, calls = run(spec)
+        fl_counts.append(launches.get("flash_attention", 0))
+        fl_calls += calls[:1]
+        got = result.to_dict()["reports"]
+        bad_fields, held, equal = train_row_problems(got, d["reports"],
+                                                     worst_ulps)
+        curves = [rep.extra["training"]["loss_curve"]
+                  for rows in result.reports.values() for rep in rows]
+        t0 = time.perf_counter()
+        on_cpu = ex.run_experiment(spec, device="cpu").to_dict()["reports"]
+        cpu_s = time.perf_counter() - t0
+        (fields, losses), (cpu_fields, cpu_losses) = map(
+            losses_apart, (got, on_cpu))
+        rel = float(np.max(np.abs(losses - cpu_losses) / np.abs(cpu_losses)))
+        cpu_off = [p for p in cpu_fields if fields.get(p) != cpu_fields[p]]
+        jax_curve = d["reports"][WE_PAIR[0]][0]["extra"]["training"][
+            "loss_curve"]
+        print(f"  {name} on cuda: {wall * 1e3:.3f} ms, launches {launches}; "
+              f"{held} stored scheduling fields held, {equal} bitwise, "
+              f"{len(bad_fields)} off; against the port's CPU run "
+              f"({cpu_s * 1e3:.3f} ms): {len(cpu_fields)} fields but the "
+              f"losses, {len(cpu_off)} off, the losses {rel:.3e} relative "
+              f"(limit {TRAIN_CURVE_RTOL}); loss {curves[0][0]:.4f} -> "
+              f"{curves[0][-1]:.4f} ({len(curves)} curves bitwise equal: "
+              f"{all(c == curves[0] for c in curves)}; the stored curve, "
+              f"from the JAX package's own weights, {jax_curve[0]:.4f} -> "
+              f"{jax_curve[-1]:.4f})")
+        problems += [f"{name}: {p}" for p in bad_fields[:5]]
+        problems += [f"{name}: {p} {fields.get(p)!r} against the CPU's "
+                     f"{cpu_fields[p]!r}" for p in cpu_off[:5]]
+        if not all(c == curves[0] for c in curves):
+            problems.append(f"{name}: loss curves differ across schemes")
+        if not rel <= TRAIN_CURVE_RTOL:
+            problems.append(f"{name}: losses {rel} from the CPU's")
+    print("  stored fields off by ulps, the worst of each: "
+          + (", ".join(f"{f} {u:.0f}" for f, u in sorted(worst_ulps.items()))
+             or "none"))
+    if min(fl_counts) < 1 or len(set(fl_counts)) > 1:
+        problems.append(f"the training specs launched flash {fl_counts} "
+                        f"times")
+    ok, entry = flash_entry(torch, "experiments fig-train", fl_counts[0],
+                            len(fl_counts), fl_calls)
+    entries.append(entry)
+    if not ok:
+        problems.append("flash on the training specs' inputs disagrees")
+
+    # 5. the CLI as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.experiments", "--demo",
+             "quick", "--store", tmp, "--check-cache"], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        cli_s = time.perf_counter() - t0
+    tail = cli.stdout.strip().splitlines()[-1:] or [cli.stderr.strip()]
+    print(f"  python -m repro_torch.experiments --demo quick --check-cache: "
+          f"exit {cli.returncode} in {cli_s:.3f} s: {tail[0]}")
+    # a fresh store: the first run computes, the second is the hit
+    if cli.returncode != 0 or "computed in" not in cli.stdout \
+            or "check-cache: OK" not in cli.stdout:
+        problems.append(f"the CLI failed: {cli.stderr.strip()[-300:]}")
+    if problems:
+        fail("experiment layer: " + "; ".join(problems))
+    return entries
+
+
 def main() -> None:
     import torch
 
@@ -2792,23 +3475,15 @@ def main() -> None:
     for B, (r, fl) in sizes.items():
         times[B] = (cuda_ms(torch, kernel_fn(r, fl)),
                     cuda_ms(torch, plain_fn(r, fl)))
-        # the bound from this run's rows: every busy cell-round needs its
-        # Gamma and Binomial Threefry pairs (a loose floor: no boost pairs,
-        # transcendentals or reductions, every lane useful)
+        # the bound from this run's rows
         out = kernel_fn(r, fl)()
-        rounds = float(out[:, 1].double().sum().item())
-        ops = rounds * K_PAPER * 2 * THREEFRY_INT_OPS
-        nbytes = r.numel() * 4 + fl.numel() * 4 + out.numel() * 4
-        ops_ms, bytes_ms = ops / INT32_OPS_PER_S * 1e3, \
-            nbytes / HBM_BYTES_PER_S * 1e3
-        bounds[B] = (max(ops_ms, bytes_ms),
-                     "operations" if ops_ms >= bytes_ms else "bytes")
+        bound, by, ops, nbytes = we_rounds_bound(r, out, (fl,))
+        bounds[B] = (bound, by)
         print(f"we_rounds at {B} rows: kernel {times[B][0]:.4f} ms, plain "
-              f"{times[B][1]:.4f} ms; bound {bounds[B][0]:.4f} ms by "
-              f"{bounds[B][1]} ({ops:.4e} int ops -> {ops_ms:.4f} ms; "
-              f"{nbytes} bytes -> {bytes_ms:.5f} ms; {rounds / B:.3f} "
-              f"rounds a row); {bounds[B][0] / times[B][0]:.3f} of the "
-              f"bound")
+              f"{times[B][1]:.4f} ms; bound {bound:.4f} ms by {by} "
+              f"({ops:.4e} int ops, {nbytes} bytes; "
+              f"{float(out[:, 1].double().mean()):.3f} rounds a row); "
+              f"{bound / times[B][0]:.3f} of the bound")
     wall = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2863,6 +3538,7 @@ def main() -> None:
     train_kernels = train_phases(torch, dev)
     exact_oracle_phase(torch, dev, points, specs)
     het_kernels = het_phases(torch, dev)
+    experiment_kernels = experiment_phase(torch, dev)
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -2872,7 +3548,7 @@ def main() -> None:
         "ms": times[B0][0], "plain_ms": times[B0][1],
         "bound_ms": bounds[B0][0], "bound_by": bounds[B0][1],
         "library_ms": None}] + serve_kernels + moe_kernels
-        + train_kernels + het_kernels}))
+        + train_kernels + het_kernels + experiment_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,10 +13,14 @@ Layout (each module the counterpart of its namesake in ``repro.core``)
                   we_rounds kernel (``cuda``; its plain PyTorch version on
                   the CPU)
   schemes      -- the policy surface: oracle, fixed, uniform, mds, work
-                  exchange with known / unknown rates, gradient_coded;
+                  exchange with known / unknown rates, het_mds,
+                  trace_replay, gradient_coded, hedged;
                   ``simulate`` (one exact trial), ``mc``, ``mc_grid``,
                   ``make_scheduler``
   simulator    -- DEPRECATED free-function shims over ``schemes``
+  erlang       -- exact order statistics of heterogeneous Erlangs (eqs. 4-5)
+  oracle       -- Theorem 1 / Corollary 2 closed forms and samplers
+  mds          -- the (K, L) MDS baseline, exact and Monte Carlo (eq. 6)
   coded        -- executable MDS matmul + gradient coding baselines
   runtime      -- real-gradients / virtual-clock heterogeneous runtime
                   (``VirtualWorkerPool`` incl. measured-trace replay)
@@ -31,8 +35,8 @@ Three-line API:
 Every ``mc`` entry point runs on ``device="cuda"`` unless the caller
 passes ``device="cpu"``.
 """
-from . import (assignment, coded, estimator, exchange, registry, runtime,
-               samplers, schemes, simulator, types)
+from . import (assignment, coded, erlang, estimator, exchange, mds, oracle,
+               registry, runtime, samplers, schemes, simulator, types)
 from .registry import Registry
 from .samplers import (SAMPLER_BACKENDS, get_backend, list_backends,
                        register_backend, resolve_backend)
@@ -41,8 +45,9 @@ from .schemes import (MCReport, SCHEME_REGISTRY, Scheme, get_scheme,
 from .types import ExchangeConfig, HetSpec, RunStats
 
 __all__ = [
-    "assignment", "coded", "estimator", "exchange", "registry", "runtime",
-    "samplers", "schemes", "simulator", "types",
+    "assignment", "coded", "erlang", "estimator", "exchange", "mds",
+    "oracle", "registry", "runtime", "samplers", "schemes", "simulator",
+    "types",
     "Registry", "MCReport", "Scheme", "SCHEME_REGISTRY", "get_scheme",
     "list_schemes", "mc_grid_panel", "register_scheme",
     "SAMPLER_BACKENDS", "get_backend", "list_backends", "register_backend",

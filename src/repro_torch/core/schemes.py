@@ -3,8 +3,8 @@
 The counterpart of ``repro.core.schemes`` for the paper's six schemes --
 ``oracle``, ``fixed``, ``uniform``, ``mds`` (L optimized), and work
 exchange with known (``work_exchange``) and unknown
-(``work_exchange_unknown``) rates -- and ``gradient_coded``.  Each
-implements
+(``work_exchange_unknown``) rates -- and the reference's four others.
+Each implements
 
     plan(het, N)                              -> Assignment
     simulate(het, N, rng)                     -> RunStats  (one exact trial)
@@ -28,9 +28,12 @@ sampler backend (``cuda`` by default, ``numpy`` for the exact engine).
 Every ``mc`` entry point takes ``device=`` (default ``"cuda"``, which
 raises without a card; ``"cpu"`` runs the plain PyTorch versions).
 
-The reference's ``het_mds``, ``trace_replay`` and ``hedged`` schemes are
-not ported yet: ``get_scheme`` raises ``NotImplementedError`` for them
-(ROADMAP.md, Queue 1 item 6).
+Beside the paper's schemes stand the reference's three scenario schemes:
+``het_mds`` (heterogeneous coded loads, alias ``hcmm``), ``trace_replay``
+(measured per-epoch rates through the master protocol) and ``hedged``
+(the fastest worker mirrors the straggler's queue).  They draw with numpy
+on the host, as the reference's do, so their reports are the reference's
+bit for bit at any backend.
 """
 from __future__ import annotations
 
@@ -48,10 +51,6 @@ from .registry import Registry
 from .samplers import (get_backend, get_gamma_rows, resolve_backend,
                        validate_backend)
 from .types import ExchangeConfig, HetSpec, RunStats
-
-# the reference's schemes still to port, by name and alias
-_LATER_SCHEMES = ("het_mds", "hcmm", "trace_replay", "hedged",
-                  "replicate_slowest", "hedged_requests")
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +112,22 @@ class MCReport:
                     d[field] = [float(x) for x in arr]
         return d
 
+    @classmethod
+    def from_dict(cls, d: Dict) -> "MCReport":
+        """The inverse of ``to_dict`` (what a results store reads back)."""
+        trials = {field: (np.asarray(d[field], dtype=np.float64)
+                          if d.get(field) is not None else None)
+                  for field in ("t_comp_trials", "iterations_trials",
+                                "n_comm_trials")}
+        return cls(scheme=d["scheme"], trials=int(d["trials"]),
+                   t_comp=float(d["t_comp"]),
+                   t_comp_std=float(d["t_comp_std"]),
+                   iterations=float(d["iterations"]),
+                   iterations_std=float(d["iterations_std"]),
+                   n_comm=float(d["n_comm"]),
+                   n_comm_std=float(d["n_comm_std"]),
+                   extra=dict(d.get("extra", {})), **trials)
+
 
 def _report(scheme: str, ts: np.ndarray, its: np.ndarray, cs: np.ndarray,
             keep_trials: bool = False,
@@ -160,10 +175,6 @@ def register_scheme(name: str, *, aliases: Sequence[str] = ()):
 
 def get_scheme(name: str, **params) -> "Scheme":
     """Instantiate a registered scheme by canonical name or alias."""
-    if name in _LATER_SCHEMES and name not in SCHEME_REGISTRY:
-        raise NotImplementedError(
-            f"scheme {name!r} is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 6)")
     return SCHEME_REGISTRY.get(name)(**params)
 
 
@@ -989,6 +1000,188 @@ def mc_grid_panel(schemes: Dict[str, Scheme], het_specs: Sequence[HetSpec],
 
 
 # ---------------------------------------------------------------------------
+# beyond-paper scenario schemes
+# ---------------------------------------------------------------------------
+
+@register_scheme("het_mds", aliases=("hcmm",))
+class HetMDSScheme(Scheme):
+    """Heterogeneous coded loads (Reisizadeh et al. HCMM / Kim et al.).
+
+    Instead of the paper's symmetric (K, L) code, each worker k gets a coded
+    load l_k proportional to its rate with aggregate redundancy r >= 1
+    (sum l_k = r N); the run completes at the earliest time the finished
+    workers' loads cover N.  At r = 1 with exact rates this is the
+    heterogeneity-aware fixed assignment; larger r trades completion time
+    (every load scales by ~r under light-tailed service) for tolerance of
+    stragglers and rate mismatch -- one draw per trial, no reassignment.
+    The draws are numpy's on the host whatever the backend.
+    """
+
+    def __init__(self, redundancy: float = 1.25):
+        if redundancy < 1.0:
+            raise ValueError("redundancy must be >= 1")
+        self.redundancy = float(redundancy)
+
+    def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
+        total = int(np.ceil(self.redundancy * N))
+        return largest_remainder_round(het.lambdas, total)
+
+    @staticmethod
+    def _cover_times_rows(load_rows: np.ndarray, scale_rows: np.ndarray,
+                          N: int, rng: np.random.Generator) -> np.ndarray:
+        """Per-row cover time: earliest finish time at which the finished
+        workers' coded loads jointly cover N (rows are independent runs)."""
+        t = np.full(load_rows.shape, np.inf)
+        busy = load_rows > 0
+        t[busy] = rng.gamma(shape=load_rows[busy], scale=scale_rows[busy])
+        order = np.argsort(t, axis=1, kind="stable")
+        covered = np.cumsum(np.take_along_axis(load_rows, order, axis=1),
+                            axis=1) >= N
+        first = np.argmax(covered, axis=1)               # first covering rank
+        t_sorted = np.take_along_axis(t, order, axis=1)
+        return t_sorted[np.arange(first.size), first]
+
+    def _cover_times(self, het: HetSpec, N: int, trials: int,
+                     rng: np.random.Generator) -> np.ndarray:
+        loads = self.initial_sizes(het, N)
+        return self._cover_times_rows(
+            np.broadcast_to(loads, (trials, het.K)),
+            np.broadcast_to(1.0 / het.lambdas, (trials, het.K)), N, rng)
+
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator) -> RunStats:
+        loads = self.initial_sizes(het, N)
+        t = float(self._cover_times(het, N, 1, rng)[0])
+        return RunStats(t_comp=t, iterations=1,
+                        n_comm=float(loads.sum() - N), n_done=loads)
+
+    def mc(self, het: HetSpec, N: int, trials: int,
+           rng: np.random.Generator, keep_trials: bool = False,
+           backend: Optional[str] = None,
+           device=DEFAULT_DEVICE) -> MCReport:
+        validate_backend(backend)
+        resolve_device(device)
+        loads = self.initial_sizes(het, N)
+        ts = self._cover_times(het, N, trials, rng)
+        return _report(self.name, ts, np.ones(trials),
+                       np.full(trials, float(loads.sum() - N)), keep_trials,
+                       extra={"redundancy": self.redundancy})
+
+    def mc_grid(self, het_specs: Sequence[HetSpec], N: int, trials: int,
+                rng: np.random.Generator, keep_trials: bool = False,
+                backend: Optional[str] = None,
+                device=DEFAULT_DEVICE) -> List[MCReport]:
+        """Cover times for the whole grid in one (G * trials, K) batch."""
+        validate_backend(backend)
+        resolve_device(device)
+        specs = list(het_specs)
+        if not specs or len({h.K for h in specs}) != 1:
+            return super().mc_grid(specs, N, trials, rng,
+                                   keep_trials=keep_trials, backend=backend,
+                                   device=device)
+        T = int(trials)
+        loads = np.stack([self.initial_sizes(h, N) for h in specs])
+        ts = self._cover_times_rows(
+            np.repeat(loads, T, axis=0),
+            np.repeat(np.stack([1.0 / h.lambdas for h in specs]), T, axis=0),
+            N, rng).reshape(len(specs), T)
+        return [_report(self.name, ts[g], np.ones(T),
+                        np.full(T, float(loads[g].sum() - N)), keep_trials,
+                        extra={"redundancy": self.redundancy,
+                               "backend": "numpy"})
+                for g in range(len(specs))]
+
+
+@register_scheme("trace_replay")
+class TraceReplayScheme(Scheme):
+    """Replay measured per-epoch service-rate traces through the id-aware
+    master protocol (``MasterScheduler`` + ``VirtualWorkerPool``'s
+    measured-trace path).
+
+    Trace sources, in precedence order:
+
+    ``traces``
+        A literal (K, E) array of observed rates (wrapping after E
+        epochs).
+    ``corpus``
+        A named measured-trace corpus under ``results/traces/``
+        (``repro_torch.scenarios.traces``): the scheme replays the corpus
+        window selected by ``worker_offset`` / ``epoch_start`` /
+        ``epochs`` -- the same windowing the ``trace_corpus`` scenario
+        family uses, so ``scheme_spec("trace_replay", corpus=...)``
+        inside an experiment replays exactly the grid point's trace.
+    *(neither)*
+        A synthetic drift profile perturbs the HetSpec rates by
+        +-``drift`` over ``period`` epochs, phase-shifted per worker.
+
+    The scheduler sees only the *nominal* rates; realized epochs run at
+    the trace rates.
+    """
+
+    plan_wait_all = False
+
+    def __init__(self, traces: Optional[np.ndarray] = None,
+                 drift: float = 0.3, period: int = 8,
+                 threshold_frac: float = 0.05,
+                 corpus: Optional[str] = None, worker_offset: int = 0,
+                 epoch_start: int = 0, epochs: Optional[int] = None):
+        self.traces = None if traces is None else np.asarray(traces, float)
+        self.drift = float(drift)
+        self.period = int(period)
+        self.threshold_frac = float(threshold_frac)
+        self.corpus = corpus
+        self.worker_offset = int(worker_offset)
+        self.epoch_start = int(epoch_start)
+        self.epochs = None if epochs is None else int(epochs)
+
+    def _traces_for(self, het: HetSpec) -> np.ndarray:
+        if self.traces is not None:
+            if self.traces.shape[0] != het.K:
+                raise ValueError(f"traces have {self.traces.shape[0]} "
+                                 f"workers; het has {het.K}")
+            return self.traces
+        if self.corpus is not None:
+            from ..scenarios.traces import load_corpus
+            return load_corpus(self.corpus).window(
+                het.K, self.worker_offset, self.epoch_start, self.epochs)
+        e = np.arange(self.period)
+        k = np.arange(het.K)[:, None]
+        profile = 1.0 + self.drift * np.sin(
+            2.0 * np.pi * (e[None, :] / self.period + k / het.K))
+        return np.maximum(het.lambdas[:, None] * profile, 1e-9)
+
+    def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
+        return proportional_assignment(het.lambdas, N)
+
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator) -> RunStats:
+        from .runtime import VirtualWorkerPool
+        sched = MasterScheduler(range(N), het.K, rates=het.lambdas,
+                                threshold_frac=self.threshold_frac)
+        pool = VirtualWorkerPool(het.lambdas, rng=rng,
+                                 traces=self._traces_for(het))
+        n_done = np.zeros(het.K, dtype=np.int64)
+        guard = 0
+        while not sched.finished and guard < 100_000:
+            a = sched.next_assignment()
+            if a is None:
+                break
+            elapsed, done = pool.run_epoch(a)
+            sched.report(done, elapsed)
+            n_done += done
+            guard += 1
+        return RunStats(t_comp=sched.t_comp, iterations=sched.iterations,
+                        n_comm=float(sched.n_comm), n_done=n_done)
+
+    def make_scheduler(self, unit_ids, rates=None, estimator=None,
+                       threshold_frac=None) -> MasterScheduler:
+        thr = self.threshold_frac if threshold_frac is None else threshold_frac
+        rates = np.asarray(rates, dtype=np.float64)
+        return MasterScheduler(unit_ids, rates.size, rates=rates,
+                               threshold_frac=thr)
+
+
+# ---------------------------------------------------------------------------
 # coded scheme
 # ---------------------------------------------------------------------------
 
@@ -1048,11 +1241,98 @@ class GradientCodedScheme(Scheme):
         return CoverScheduler(unit_ids, K, s=self.s)
 
 
+@register_scheme("hedged", aliases=("replicate_slowest", "hedged_requests"))
+class HedgedScheme(Scheme):
+    """Replication-on-slowest (hedged requests).
+
+    The fastest worker is withheld as a hot spare; the other K-1 workers
+    take the heterogeneity-aware proportional shares of all N units.  The
+    spare mirrors the queue of the predicted straggler -- the lowest-rate
+    loaded worker, which has both the largest expected completion time
+    and (Var[T_k] = n_k / lambda_k^2) the heaviest tail -- and whichever
+    replica finishes first counts.  Classic tail-latency hedging: pay one
+    duplicated shard instead of coordination rounds; ``n_comm`` is the
+    duplicated units.  With K = 1 there is nobody to hedge with and the
+    scheme degenerates to the fixed assignment.  The draws are numpy's on
+    the host whatever the backend.
+    """
+
+    def _layout(self, het: HetSpec, N: int):
+        """Per-worker primary loads + (spare, straggler) worker ids."""
+        loads = np.zeros(het.K, dtype=np.int64)
+        if het.K == 1:
+            loads[0] = N
+            return loads, None, None
+        spare = int(np.argmax(het.lambdas))
+        others = np.delete(np.arange(het.K), spare)
+        loads[others] = proportional_assignment(het.lambdas[others], N)
+        loaded = others[loads[others] > 0]
+        if loaded.size == 0:
+            return loads, None, None
+        strag = int(loaded[np.argmin(het.lambdas[loaded])])
+        return loads, spare, strag
+
+    def initial_sizes(self, het: HetSpec, N: int) -> np.ndarray:
+        loads, spare, strag = self._layout(het, N)
+        sizes = loads.copy()
+        if spare is not None:
+            sizes[spare] = loads[strag]      # the duplicated shard
+        return sizes
+
+    def _finish_times(self, het: HetSpec, N: int, trials: int,
+                      rng: np.random.Generator):
+        """Per-trial ``(t_comp, n_comm, t_strag_raw, t_spare)`` plus the
+        layout, all trials at once (draw order: primaries, then spare)."""
+        loads, spare, strag = self._layout(het, N)
+        busy = loads > 0
+        t_k = np.full((trials, het.K), -np.inf)   # idle never sets the max
+        t_k[:, busy] = rng.gamma(shape=loads[busy],
+                                 scale=1.0 / het.lambdas[busy],
+                                 size=(trials, int(busy.sum())))
+        if spare is None:
+            return (t_k.max(axis=1), np.zeros(trials), loads, spare, strag,
+                    None, None)
+        t_spare = rng.gamma(shape=loads[strag],
+                            scale=1.0 / het.lambdas[spare], size=trials)
+        t_eff = t_k.copy()
+        t_eff[:, strag] = np.minimum(t_k[:, strag], t_spare)
+        t_comp = t_eff.max(axis=1)          # spare's column is -inf
+        n_comm = np.full(trials, float(loads[strag]))
+        return t_comp, n_comm, loads, spare, strag, t_k[:, strag], t_spare
+
+    def simulate(self, het: HetSpec, N: int,
+                 rng: np.random.Generator) -> RunStats:
+        t_comp, n_comm, loads, spare, strag, t_strag, t_spare = \
+            self._finish_times(het, N, 1, rng)
+        n_done = loads.copy()
+        if spare is not None and float(t_spare[0]) < float(t_strag[0]):
+            # the spare's replica finished first: credit it, not the
+            # straggler (exactly one replica counts -- work conserved)
+            n_done[spare] = loads[strag]
+            n_done[strag] = 0
+        return RunStats(t_comp=float(t_comp[0]), iterations=1,
+                        n_comm=float(n_comm[0]), n_done=n_done)
+
+    def mc(self, het: HetSpec, N: int, trials: int,
+           rng: np.random.Generator, keep_trials: bool = False,
+           backend: Optional[str] = None,
+           device=DEFAULT_DEVICE) -> MCReport:
+        validate_backend(backend)
+        resolve_device(device)
+        t_comp, n_comm, _, spare, strag, _, _ = \
+            self._finish_times(het, N, trials, rng)
+        extra = {} if spare is None else {"spare": float(spare),
+                                          "straggler": float(strag)}
+        return _report(self.name, t_comp, np.ones(trials), n_comm,
+                       keep_trials, extra=extra)
+
+
 __all__ = [
     "MCReport", "Scheme", "SCHEME_REGISTRY", "register_scheme",
     "get_scheme", "list_schemes", "simulate_work_exchange_scalar",
     "work_exchange_mc_batched", "mc_grid_panel", "mds_sweep",
     "mds_sweep_batched", "mds_time_samples",
     "OracleScheme", "FixedScheme", "UniformScheme", "MDSScheme",
-    "WorkExchangeScheme", "WorkExchangeUnknownScheme", "GradientCodedScheme",
+    "WorkExchangeScheme", "WorkExchangeUnknownScheme", "HetMDSScheme",
+    "TraceReplayScheme", "GradientCodedScheme", "HedgedScheme",
 ]

@@ -21,7 +21,7 @@ pool's virtual clocks.  Gradients run through the unit-group engine
 (``repro_torch.hettrain.engine``): ONE canonical-order ``grad_sum`` per
 optimizer step, so the parameter trajectory is *bit-identical* across
 policies by work conservation.  Time is virtual (exponential service
-model or a literal trace matrix).
+model, a literal trace matrix or a measured-trace corpus by name).
 
 The step runs on the params' device (the kernels on the card, their
 plain versions on the CPU), and ``AdamW.update`` works in place: the
@@ -75,11 +75,6 @@ class HetTrainer:
                  trace_corpus: Optional[str] = None):
         if policy not in POLICIES:
             raise ValueError(f"policy {policy!r} not in {POLICIES}")
-        if trace_corpus is not None:
-            raise NotImplementedError(
-                "trace_corpus= needs the measured-trace corpora of the "
-                "scenarios layer, not ported yet (ROADMAP.md, Queue 1 "
-                "item 7); pass a literal (K, E) traces= matrix")
         self.model = model
         self.opt = opt
         self.rates = np.asarray(rates, dtype=np.float64)
@@ -89,8 +84,16 @@ class HetTrainer:
         self.store = store
         self.loader = HetShardedLoader(store, self.K)
         # trace-driven pool: realized epochs run at measured per-epoch
-        # rates (a literal (K, E) matrix) while every policy keeps
-        # scheduling by the nominal ``rates``
+        # rates (a literal (K, E) matrix, or a results/traces corpus by
+        # name) while every policy keeps scheduling by the nominal
+        # ``rates`` -- the same scheduler-sees-nominal split as the
+        # trace_corpus scenario family
+        if trace_corpus is not None:
+            if traces is not None:
+                raise ValueError("give either traces= or trace_corpus=, "
+                                 "not both")
+            from ..scenarios.traces import load_corpus
+            traces = load_corpus(trace_corpus).window(self.K)
         self.pool = VirtualWorkerPool(self.rates, seed=seed, traces=traces)
         self.estimator_kind = estimator_kind
         self.coded_stragglers = coded_stragglers

@@ -203,6 +203,9 @@ def test_bad_policy_and_trace_corpus_raise(setup):
     store = UnitStore(**STORE)
     with pytest.raises(ValueError, match="work_exchange_online"):
         HetTrainer(setup["model"], AdamW(), RATES, store, policy="bogus")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(FileNotFoundError, match="alibaba"):
         HetTrainer(setup["model"], AdamW(), RATES, store,
                    trace_corpus="alibaba")
+    with pytest.raises(ValueError, match="not both"):
+        HetTrainer(setup["model"], AdamW(), RATES, store, traces=TRACES,
+                   trace_corpus="default_64x48")

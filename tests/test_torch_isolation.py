@@ -69,7 +69,8 @@ def _imported_modules(path: Path):
 def test_source_imports_no_jax_and_no_repro():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 40
-    for sub in ("core", "distributed", "hettrain"):
+    for sub in ("core", "distributed", "hettrain", "scenarios",
+                "experiments"):
         assert any(p.parent == PKG / sub for p in files), sub
     for path in files:
         for mod in _imported_modules(path):
@@ -170,3 +171,39 @@ def test_het_training_runs_with_jax_and_repro_blocked():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+def test_experiment_layer_runs_with_jax_and_repro_blocked(tmp_path):
+    """The scenario families and the experiment layer (spec, plan,
+    engine, store, CLI) import and run on the CPU where importing ``jax``
+    or ``repro`` fails: the quick demo through the CLI with its cache
+    check, the trace demo (a ``trace_corpus`` grid and ``trace_replay``
+    on the committed corpus) on the ``cuda`` backend's plain version,
+    and a committed store entry read back and hashed."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.experiments import ResultsStore, run_experiment\n"
+        "from repro_torch.experiments.__main__ import demo_spec, main\n"
+        "from repro_torch.scenarios import list_families, load_corpus\n"
+        f"assert main(['--demo', 'quick', '--backend', 'numpy', "
+        f"'--device', 'cpu', '--store', {str(tmp_path)!r}, "
+        f"'--check-cache']) == 0\n"
+        "r = run_experiment(demo_spec('trace').replace(trials=2), "
+        "device='cpu')\n"
+        "assert r.spec.backend == 'cuda' and len(r.report("
+        "'trace_replay@w0')) == 2\n"
+        "assert len(list_families()) == 5 and load_corpus().workers == 64\n"
+        f"store = ResultsStore({str(PKG.parents[1] / 'results' / 'store')!r})\n"
+        "h = '07eaead10b06f4862dc583bb9fb4342f8eaee8c7e4d074b5d61eb94bc527fbb7'\n"
+        "assert store.get(h).spec.spec_hash() == h\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+        "for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok', r.report('work_exchange')[0].t_comp)\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "check-cache: OK" in res.stdout
+    assert res.stdout.splitlines()[-1].startswith("ok")

@@ -172,17 +172,29 @@ def test_plan_matches_reference(name):
 
 def test_later_slices_raise_not_implemented():
     """What the port has not taken yet raises and names its ROADMAP item:
-    the reference's three other scenario schemes (Queue 1 item 6) and
-    ``HetTrainer``'s measured-trace corpora (item 7)."""
-    from repro_torch.distributed import HetTrainer
+    the serving and live axes of an experiment spec (Queue 1 items 9 and
+    10); the reference's ``jax`` backend and the ``torch`` backend that
+    takes its role (item 5) are not registered, so naming either raises
+    the registry's ``KeyError`` listing what is.  The three scenario
+    schemes and ``HetTrainer``'s trace corpora no longer raise."""
+    from repro_torch.experiments import ExperimentSpec, ScenarioGrid, \
+        scheme_spec
     for name in ("het_mds", "hcmm", "trace_replay", "hedged",
-                 "replicate_slowest"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            get_scheme(name)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        HetTrainer(None, None, np.ones(4), None, trace_corpus="alibaba")
-    with pytest.raises(NotImplementedError, match="slice|port"):
-        get_scheme("hedged")
+                 "replicate_slowest", "hedged_requests"):
+        assert get_scheme(name).name in ("het_mds", "trace_replay",
+                                         "hedged")
+    base = dict(name="x", grid=ScenarioGrid(K=4, points=[(4.0, 1.0, 1)]),
+                schemes=(scheme_spec("fixed"),), N=100, trials=2)
+    for later in (dict(serving={"loads": [0.5]}), dict(execution="live"),
+                  dict(live={"transport": "inproc"})):
+        with pytest.raises(NotImplementedError, match="items 9 and 10"):
+            ExperimentSpec(**base, **later)
+        with pytest.raises(NotImplementedError, match="items 9 and 10"):
+            ExperimentSpec.from_dict({**ExperimentSpec(**base).to_dict(),
+                                      **later})
+    for name in ("jax", "torch"):
+        with pytest.raises(KeyError, match="cuda.*numpy|numpy.*cuda"):
+            resolve_backend(name)
 
 
 def test_unknown_backend_and_scheme_fail_fast():
