@@ -201,9 +201,10 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     relative of the same call on the CPU plain path;
 23. the experiment layer (``repro_torch.experiments``), every store it
     writes a temporary one: (i) each committed ``results/store`` entry's
-    spec, read by the port, hashes to its file name, the serving and live
-    ones raise ``NotImplementedError`` naming ROADMAP.md's Queue 1 items
-    9 and 10, and each batch Monte-Carlo entry (fig5, fig6, fig7, their
+    spec but the serving ones (phase 24's), read by the port, hashes to
+    its file name, the live one raises ``NotImplementedError`` naming
+    ROADMAP.md's Queue 1 item 10, and each batch Monte-Carlo entry (fig5,
+    fig6, fig7, their
     ``-quick`` cuts, the ``mc`` demo-live; all numpy) rerun through
     ``run_experiment(..., device="cuda")`` gives every stored report
     field with ``==``; (ii) fig5, fig6 and fig7 at paper scale (K = 50,
@@ -235,7 +236,38 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     are zeroed just before each run and read just after; every launch's
     inputs are recorded, and each path's largest ``we_rounds`` launch (and
     the training path's first flash launch) is replayed against the plain
-    version and timed.
+    version and timed;
+24. the serving subsystem (``repro_torch.serving``; no kernel: the
+    reference's engine is a jitted ``lax.scan``, not a ``pallas_call``):
+    (a) the four ``fig-load-*`` store entries hash to their names (and
+    equal this script's copy of ``benchmarks/fig_load.py``'s specs) and
+    rerun on the numpy engine on the card's host, the two full ones
+    ``==`` field for field (in background processes), the two ``-quick``
+    ones on every stored field, the three keys newer than them the only
+    difference; (b) both full studies (K 16, N 150, 4 loads x 16 trials,
+    2000 slots, 5 schemes) on the ``torch`` engine on the card: every
+    report stamped ``torch`` with a closed ledger and ``units_admitted``
+    equal to the stored numpy report's, ``t_comp`` within 6 combined SE
+    of it, each percentile within 6 combined SE of its own (resampling
+    the trials; see ``BOOT_RESAMPLES``), goodput and SLO misses within
+    the reference conformance battery's bands, and every
+    ``fig_load.validate`` check; printed beside them, the sign of torch
+    minus numpy of each percentile over the 40 (scheme, load) rows, and
+    the numpy engine at the next seed against the store (the oracle
+    against itself) in SE of the mean and of the percentile's own; (c)
+    the torch engine on the card against the same engine on the CPU on
+    both ``-quick`` specs: at least 99% of rows with an equal integer
+    ledger and histogram (the share printed), every report within 6 SE,
+    and one pass a dispatch on the card (the queue tiers on the CPU
+    only); (d) each full study's wall, one run on ``torch`` on the card
+    and one on numpy run beside it; alone, one dispatch a study on each
+    engine (warm minimum of 2), the queue tier on and off on the card and
+    on the CPU, the CUDA launches a slot and the device's busy share of
+    one profiled dispatch (the stationary ``-quick`` spec's
+    ``work_exchange``), and one dispatch's wall at 4 loads x 1024 trials
+    (4096 rows); (e) ``--demo serving`` and ``--demo serving-trace`` on
+    the card in subprocesses: ``computed in``, then
+    ``check-cache: OK``.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
@@ -387,6 +419,31 @@ LOSS_FIELDS = ("loss_curve", "final_loss", "steps_to_target",
 # the fig-train losses on the card against the port's CPU run of the same
 # spec: read 2.801e-6 (float32 products and sums in another order)
 TRAIN_CURVE_RTOL = 1e-5
+# phase 24: the serving subsystem.  ``benchmarks/fig_load.py``'s
+# dispatch-policy panel, loads, operating point and SLO (copied: benchmarks/
+# imports the JAX package); the trials of the larger torch dispatch (64 x
+# the study's, 4 loads x 1024 = 4096 rows); the bootstrap resamples of a
+# percentile's standard error.  A sojourn percentile of a study pools
+# ~300 completions a load over 16 trials, a few hundred jobs: its spread
+# is set by the busy periods of the trials, not by the spread of the
+# per-trial means the reports carry, so a percentile is held within 6
+# combined SE of its own, resampling the trials of the torch run's
+# per-trial histograms (the numpy run, same design and size, taken to
+# have the same SE).  Against 6 SE of the mean, the reference's cell
+# test's band (tests/test_torch_serving_engine.py holds that band at the
+# reference's small cell), the torch run reads ~6.4 of them at load 0.5
+# and ~2.7 of its own; the phase prints both, and the same two readings
+# of the numpy engine at the next seed against the store
+FIG_LOAD_SCHEMES = ("work_exchange", "work_exchange_unknown", "fixed",
+                    "het_mds", "hedged")
+FIG_LOAD_LOADS, FIG_LOAD_LOADS_QUICK = (0.5, 0.7, 0.85, 0.95), (0.6, 0.9)
+FIG_LOAD_POINT = (30.0, 30.0 * 30.0 / 6.0, 7)
+FIG_LOAD_K, FIG_LOAD_N, FIG_LOAD_TRIALS, FIG_LOAD_SLO = 16, 150, 16, 4.0
+SERVE_BIG_TRIALS = 1024
+BOOT_RESAMPLES = 400
+# card against CPU: the share of rows whose integer ledger and histogram
+# must be equal
+SERVE_ROWS_EQUAL = 0.99
 REPLACES = {"linear_scan": "src/repro/kernels/linear_scan/kernel.py:22",
             "flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:30",
@@ -642,6 +699,88 @@ def fig7_validate(rows):
 FIGURES = {"fig5": (fig5_experiment, fig5_rows, fig5_validate),
            "fig6": (fig6_experiment, fig6_rows, fig6_validate),
            "fig7": (fig7_experiment, fig7_rows, fig7_validate)}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the load-vs-latency study's spec, rows and checks, as
+# benchmarks/fig_load.py has them (the script keeps its own copy; phase 24
+# checks that each copy's numpy spec hashes to its committed store entry)
+# ---------------------------------------------------------------------------
+
+def fig_load_experiment(ex, scenario: str, quick: bool = False,
+                        trials: int = FIG_LOAD_TRIALS,
+                        backend: str = "numpy"):
+    from repro_torch.scenarios import DriftingScenario
+    if scenario == "stationary":
+        grid = ex.ScenarioGrid(K=FIG_LOAD_K, points=[FIG_LOAD_POINT])
+    else:
+        grid = DriftingScenario(K=FIG_LOAD_K, points=(FIG_LOAD_POINT,),
+                                kind="ar1", rounds=24)
+    return ex.ExperimentSpec(
+        name=f"fig-load-{scenario}" + ("-quick" if quick else ""),
+        grid=grid,
+        schemes=tuple(ex.scheme_spec(name) for name in FIG_LOAD_SCHEMES),
+        N=FIG_LOAD_N, trials=(6 if quick else trials), seed=1234,
+        backend="numpy",
+        serving=ex.ServingConfig(
+            loads=FIG_LOAD_LOADS_QUICK if quick else FIG_LOAD_LOADS,
+            slots=400 if quick else 2000, deadline_slo=FIG_LOAD_SLO,
+            backend=backend))
+
+
+def fig_load_rows(result):
+    spec = result.spec
+    scenario = ("drifting" if spec.grid.family == "drifting"
+                else "stationary")
+    lam_sum = spec.grid.specs()[0].lambda_sum
+    rows = []
+    for name in result.keys():
+        for rep in result.report(name):
+            e = rep.extra
+            rows.append({
+                "scenario": scenario, "scheme": name,
+                "load": e["offered_load"],
+                "offered_jobs_per_s": e["offered_load"] * lam_sum / spec.N,
+                "sojourn": rep.t_comp, "p50": e["p50"], "p95": e["p95"],
+                "p99": e["p99"], "throughput_jobs": e["throughput_jobs"]})
+    return rows
+
+
+def fig_load_validate(rows) -> list:
+    """``benchmarks/fig_load.py:validate`` at the full sweep scale."""
+    checks = []
+    by = {}
+    for r in rows:
+        by.setdefault((r["scenario"], r["scheme"]), []).append(r)
+    for (scen, scheme), rs in sorted(by.items()):
+        rs = sorted(rs, key=lambda r: r["load"])
+        lo, hi = rs[0], rs[-1]
+        tag = f"fig_load[{scen},{scheme}]"
+        checks.append((f"{tag} percentile ordering p50<=p95<=p99",
+                       all(r["p50"] <= r["p95"] + 1e-12
+                           and r["p95"] <= r["p99"] + 1e-12 for r in rs)))
+        checks.append((f"{tag} positive latency and throughput at every "
+                       f"load",
+                       all(r["sojourn"] > 0 and r["throughput_jobs"] > 0
+                           for r in rs)))
+        checks.append((f"{tag} sojourn non-decreasing with load (0.98x)",
+                       hi["sojourn"] >= 0.98 * lo["sojourn"]))
+        checks.append((f"{tag} throughput tracks offered load below knee",
+                       lo["throughput_jobs"]
+                       >= 0.75 * lo["offered_jobs_per_s"]))
+    stat = {s: sorted(rs, key=lambda r: r["load"])
+            for (scen, s), rs in by.items() if scen == "stationary"}
+    if "work_exchange" in stat and "fixed" in stat:
+        we = sum(r["sojourn"] for r in stat["work_exchange"])
+        fx = sum(r["sojourn"] for r in stat["fixed"])
+        checks.append(("fig_load[stationary] work_exchange mean sojourn "
+                       "<= 1.10x fixed over the sweep", we <= 1.10 * fx))
+    if "het_mds" in stat:
+        rs = stat["het_mds"]
+        checks.append(("fig_load[stationary] het_mds (r=1.25) saturates: "
+                       "top-load sojourn >= 1.3x lightest-load",
+                       rs[-1]["sojourn"] >= 1.3 * rs[0]["sojourn"]))
+    return checks
 
 
 def fig5_specs(HetSpec):
@@ -3077,10 +3216,12 @@ def experiment_phase(torch, dev):
     for path in sorted((ROOT / "results" / "store").glob("*.json")):
         d = json.loads(path.read_text())
         name = d["spec"]["name"]
+        if "serving" in d["spec"]:
+            continue        # phase 24
         try:
             spec = ex.ExperimentSpec.from_dict(d["spec"])
         except NotImplementedError as e:
-            ok = "items 9 and 10" in str(e)
+            ok = "item 10" in str(e)
             print(f"  store {path.stem[:12]} {name}: "
                   f"{'refused' if ok else 'FAIL'} ({e})")
             if not ok:
@@ -3298,6 +3439,504 @@ def experiment_phase(torch, dev):
     if problems:
         fail("experiment layer: " + "; ".join(problems))
     return entries
+
+
+@contextlib.contextmanager
+def recorded_sweeps(scan):
+    """Keep every ``scan.sweep_rows`` call's per-row outputs, in call order
+    (one call a scheme task and grid point): ``(scheme, out, meta)``,
+    with the call's host-clock wall as ``meta["wall_s"]``."""
+    fn = scan.sweep_rows
+    sweeps = []
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out, meta = fn(*args, **kw)
+        meta["wall_s"] = time.perf_counter() - t0
+        sweeps.append((meta["scheme"], out, meta))
+        return out, meta
+
+    scan.sweep_rows = wrapper
+    try:
+        yield sweeps
+    finally:
+        scan.sweep_rows = fn
+
+
+def pooled_percentiles(pooled: np.ndarray, bin_vals: np.ndarray,
+                       qs=(50.0, 95.0, 99.0)) -> np.ndarray:
+    """``np.percentile`` (linear) of the sojourns each row of an (n, H)
+    stack of pooled histograms holds, without expanding them."""
+    cum = np.cumsum(pooled, axis=1)
+    n = cum[:, -1]
+    out = np.empty((pooled.shape[0], len(qs)))
+    for i, q in enumerate(qs):
+        pos = q / 100.0 * (n - 1)
+        lo = np.floor(pos)
+        v_lo = bin_vals[(cum <= lo[:, None]).sum(axis=1)]
+        v_hi = bin_vals[(cum <= np.minimum(lo + 1, n - 1)[:, None]
+                         ).sum(axis=1)]
+        out[:, i] = v_lo + (v_hi - v_lo) * (pos - lo)
+    return out
+
+
+def percentile_se(hist: np.ndarray, bin_vals: np.ndarray,
+                  rng) -> np.ndarray:
+    """Standard errors of the pooled p50 / p95 / p99 of a load's (T, H)
+    per-trial completion histograms, by resampling the trials."""
+    T = hist.shape[0]
+    idx = rng.integers(0, T, size=(BOOT_RESAMPLES, T))
+    pooled = np.stack([hist[i].sum(axis=0) for i in idx])
+    pooled = pooled[pooled.sum(axis=1) > 0]
+    return pooled_percentiles(pooled, bin_vals).std(axis=0, ddof=1)
+
+
+def stored_field_diffs(got: dict, want: dict) -> tuple:
+    """(stored fields that differ, keys the rerun has that the store has
+    not) of two reports dicts."""
+    diffs, newer = [], set()
+    for key, rows in want.items():
+        for g, (mine, theirs) in enumerate(zip(got[key], rows)):
+            for field, v in theirs.items():
+                if field != "extra" and mine[field] != v:
+                    diffs.append(f"{key}[{g}].{field}")
+            for field, v in theirs["extra"].items():
+                if mine["extra"].get(field) != v:
+                    diffs.append(f"{key}[{g}].extra.{field}")
+            newer |= set(mine["extra"]) - set(theirs["extra"])
+        if len(got[key]) != len(rows):
+            diffs.append(f"{key}: {len(got[key])} rows, not {len(rows)}")
+    return diffs, newer
+
+
+# phase 24's background run of a stored fig-load entry's spec on the numpy
+# engine: ``python -c NUMPY_RERUN <entry.json> <out.json> [seed]`` runs the
+# spec once on the host, at ``seed`` when one is given (the oracle's
+# witness against itself), and writes its reports and wall
+NUMPY_RERUN = """
+import json, sys, time
+import repro_torch.experiments as ex
+spec = ex.ExperimentSpec.from_dict(json.load(open(sys.argv[1]))["spec"])
+if len(sys.argv) > 3:
+    spec = spec.replace(seed=int(sys.argv[3]))
+t0 = time.perf_counter()
+reports = ex.run_experiment(spec, device="cpu").to_dict()["reports"]
+json.dump({"reports": reports, "wall": time.perf_counter() - t0},
+          open(sys.argv[2], "w"))
+"""
+PERCENTILES = ("p50", "p95", "p99")
+
+
+def percentile_deltas(got: dict, want: dict) -> tuple:
+    """Over every (scheme, load) report of two reports dicts, in order:
+    the (rows, 3) differences got - want of p50 / p95 / p99, each row's
+    combined SE of the mean (the reference cell test's unit), and each
+    row's ``scheme@load`` tag."""
+    d, se, tags = [], [], []
+    for key, rows in want.items():
+        for a, b in zip(got[key], rows):
+            d.append([a["extra"][q] - b["extra"][q] for q in PERCENTILES])
+            se.append(max(np.hypot(a["t_comp_std"], b["t_comp_std"])
+                          / np.sqrt(b["trials"]), 1e-9))
+            tags.append(f"{key}@{b['extra']['offered_load']:g}")
+    return np.array(d), np.array(se), tags
+
+
+def worst_of(ratio: np.ndarray, tags: list) -> str:
+    """``x (q, scheme@load)`` of the largest entry of a (rows, 3) stack."""
+    i, j = np.unravel_index(np.argmax(ratio), ratio.shape)
+    return f"{ratio[i, j]:.3f} ({PERCENTILES[j]}, {tags[i]})"
+
+
+def sign_counts(d: np.ndarray) -> str:
+    """``p50 +a/-b/=c, ...`` over the rows of a (rows, 3) stack."""
+    return ", ".join(f"{q} +{int((d[:, i] > 0).sum())}/"
+                     f"-{int((d[:, i] < 0).sum())}/="
+                     f"{int((d[:, i] == 0).sum())}"
+                     for i, q in enumerate(PERCENTILES))
+
+
+def serving_checks(torch_result, want, sweeps, N: int) -> tuple:
+    """Phase 24 (b): each (scheme, load) report of a torch run against the
+    stored numpy one.  Returns (problems, the worst gaps printed, the
+    (rows, 3) combined SE of each percentile, resampled from the torch
+    run's trials)."""
+    problems = []
+    worst = {"t_comp": 0.0, "pct": 0.0, "pct_mean_se": 0.0}
+    own_se = []
+    rng = np.random.default_rng(0)
+    for (scheme, out, meta), key in zip(sweeps, torch_result.keys()):
+        T = meta["T"]
+        bin_vals = np.arange(out["hist"].shape[1]) * meta["dt"]
+        for li, (a, b) in enumerate(zip(torch_result.report(key),
+                                        want.report(key))):
+            tag = f"{key}@{b.extra['offered_load']:g}"
+            e = a.extra
+            if e.get("serving_backend") != "torch":
+                problems.append(f"{tag}: stamped {e.get('serving_backend')}")
+            if e["units_admitted"] != e["units_served"] \
+                    + e["units_cancelled"] + e["units_backlog"]:
+                problems.append(f"{tag}: the ledger does not close")
+            if e["units_admitted"] != b.extra["units_admitted"]:
+                problems.append(f"{tag}: admitted {e['units_admitted']} "
+                                f"units, numpy {b.extra['units_admitted']}")
+            se = max(np.hypot(a.t_comp_std, b.t_comp_std) / np.sqrt(T),
+                     1e-9)
+            d = abs(a.t_comp - b.t_comp) / se
+            worst["t_comp"] = max(worst["t_comp"], d)
+            if d > 6:
+                problems.append(f"{tag}: t_comp {d:.2f} SE from numpy")
+            pse = percentile_se(out["hist"][li * T:(li + 1) * T], bin_vals,
+                                rng) * np.sqrt(2.0)
+            own_se.append(pse)
+            for q, s_q in zip(PERCENTILES, pse):
+                gap = abs(e[q] - b.extra[q])
+                worst["pct"] = max(worst["pct"], gap / max(s_q, 1e-9))
+                worst["pct_mean_se"] = max(worst["pct_mean_se"], gap / se)
+                if gap > 6 * s_q + 1e-12:
+                    problems.append(f"{tag}: {q} {e[q]:.4f} against "
+                                    f"{b.extra[q]:.4f}, {gap / s_q:.2f} "
+                                    f"of its SE")
+            g = b.extra["goodput_units"]
+            if abs(g - e["goodput_units"]) > max(6 * 0.03 * g,
+                                                 6 * se * N) + 1e-12:
+                problems.append(f"{tag}: goodput {e['goodput_units']:.2f} "
+                                f"against {g:.2f}")
+            m = b.extra["slo_miss_rate"]
+            ntot = max(b.extra["completed_jobs"] * T, 1.0)
+            se_m = np.sqrt(max(m * (1 - m), 0.25 / ntot) / ntot)
+            if abs(m - e["slo_miss_rate"]) > 6 * se_m + 1e-12:
+                problems.append(f"{tag}: SLO misses {e['slo_miss_rate']:.4f}"
+                                f" against {m:.4f}")
+    return problems, worst, np.array(own_se)
+
+
+def serving_dispatch_wall(ex, spec, scheme: str, backend: str,
+                          device) -> float:
+    """Host-clock wall of one scheme task of a serving spec (one dispatch:
+    every load and trial of its grid point) on ``backend``."""
+    import torch
+    plan = ex.compile_plan(spec)
+    task = next(t for t in plan.tasks if t.scheme == scheme)
+    from repro_torch.serving import run_serving_grid
+    t0 = time.perf_counter()
+    run_serving_grid(task.scheme, task.params_dict, plan.het_specs,
+                     spec.serving, spec.N, spec.trials, task.seed,
+                     rate_schedules=plan.rate_schedules, backend=backend,
+                     device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serving_phase(torch, dev) -> None:
+    """Phase 24: the serving subsystem on the card.  (a) the four stored
+    ``fig-load-*`` entries hash to their names and rerun on the numpy
+    engine on the card's host: the full ones ``==`` field for field, the
+    ``-quick`` ones on every stored field; (b) both full studies on the
+    torch engine on the card against the stored numpy reports, and
+    ``fig_load.validate``; beside them the numpy oracle at the next seed
+    against the store, the witness of the percentile band; (c) the torch
+    engine on the card against the same engine on the CPU, row by row, on
+    both ``-quick`` specs; (d) walls, alone: one dispatch a study on each
+    engine, the queue tier on and off on the card and on the CPU, CUDA
+    launches a slot and the device's busy share, one dispatch at 64 x the
+    trials; (e) the CLI's ``serving`` and ``serving-trace`` demos on the
+    card.  The numpy runs of the full studies and the CLI runs go in
+    background processes beside (a)-(c); (d) runs after them, alone."""
+    import tempfile
+
+    import repro_torch.experiments as ex
+    from repro_torch.serving import scan
+    problems = []
+    stored = {}
+    for path in sorted((ROOT / "results" / "store").glob("*.json")):
+        d = json.loads(path.read_text())
+        if "serving" in d["spec"]:
+            stored[d["spec"]["name"]] = (path.stem, d)
+    scenarios = ("stationary", "drifting")
+    full = tuple(f"fig-load-{s}" for s in scenarios)
+    quick = tuple(f"{n}-quick" for n in full)
+    if sorted(stored) != sorted(full + quick):
+        fail(f"serving: the store's serving entries are {sorted(stored)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip()
+    print(f"serving subsystem: {card}; numpy {np.__version__}, torch "
+          f"{torch.__version__}")
+
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    with tempfile.TemporaryDirectory() as tmp:
+        background = {}
+        for name in full:
+            entry = str(ROOT / "results" / "store" / f"{stored[name][0]}.json")
+            seed = stored[name][1]["spec"]["seed"]
+            for tag, extra in ((name, []),
+                               (f"{name}@witness", [str(seed + 1)])):
+                background[tag] = subprocess.Popen(
+                    [sys.executable, "-c", NUMPY_RERUN, entry,
+                     str(Path(tmp) / f"{tag}.json")] + extra, cwd=ROOT,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, env=env)
+        for demo in ("serving", "serving-trace"):
+            background[demo] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.experiments", "--demo",
+                 demo, "--store", str(Path(tmp) / demo), "--check-cache"],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env)
+
+        def from_background(tag: str) -> dict:
+            _, err = background[tag].communicate(timeout=900)
+            if background[tag].returncode != 0:
+                fail(f"serving: the numpy run {tag} failed: "
+                     f"{err.strip()[-500:]}")
+            return json.loads((Path(tmp) / f"{tag}.json").read_text())
+
+        try:
+            # (a) the stored entries: addresses, and the quick reruns
+            specs = {}
+            for name, (stem, d) in stored.items():
+                spec = ex.ExperimentSpec.from_dict(d["spec"])
+                scen = name.split("-")[2]
+                mine = fig_load_experiment(ex, scen, name.endswith("quick"))
+                specs[name] = spec
+                if spec.spec_hash() != stem or mine != spec:
+                    problems.append(f"{name}: hash {spec.spec_hash()[:12]} "
+                                    f"for {stem[:12]}, the script's copy "
+                                    f"equal {mine == spec}")
+            for name in quick:
+                got = ex.run_experiment(specs[name],
+                                        device=dev).to_dict()["reports"]
+                diffs, newer = stored_field_diffs(got, stored[name][1][
+                    "reports"])
+                print(f"  store {stored[name][0][:12]} {name} (numpy): hash "
+                      f"ok, {len(diffs)} stored fields differ; the rerun's "
+                      f"only other keys, newer than the entry: "
+                      f"{sorted(newer)}")
+                if diffs or newer != {"latency_censored", "q_hi_mean",
+                                      "q_hi_peak"}:
+                    problems.append(f"{name}: {diffs[:3]}, newer {newer}")
+
+            # (c) the card against the CPU, on both quick specs (the CPU
+            # tiers the queue, the card does not: the splice is exact)
+            equal_rows = total_rows = 0
+            for scen in scenarios:
+                spec_t = fig_load_experiment(ex, scen, True, backend="torch")
+                with recorded_sweeps(scan) as on_card:
+                    res_card = ex.run_experiment(spec_t, device=dev)
+                with recorded_sweeps(scan) as on_cpu:
+                    res_cpu = ex.run_experiment(spec_t, device="cpu")
+                same = []
+                for (_, a, _), (_, b, _) in zip(on_card, on_cpu):
+                    eq = np.ones(a["shipped"].shape[0], dtype=bool)
+                    for k in scan.LEDGER_FIELDS + ("hist",):
+                        e = a[k] == b[k]
+                        eq &= e.all(axis=1) if e.ndim == 2 else e
+                    same.append(eq)
+                same = np.concatenate(same)
+                equal_rows += int(same.sum())
+                total_rows += same.size
+                gaps = [mean_gap(a, b)[0] for k in res_card.keys()
+                        for a, b in zip(res_card.report(k),
+                                        res_cpu.report(k))]
+                passes = ([m["passes"] for _, _, m in on_card],
+                          [m["passes"] for _, _, m in on_cpu])
+                print(f"  {spec_t.name} on torch, card against CPU: "
+                      f"{int(same.sum())}/{same.size} rows with equal "
+                      f"ledger and histogram, reports worst "
+                      f"{max(gaps):.3f} SE; passes a dispatch, card "
+                      f"{passes[0]}, CPU {passes[1]}")
+                if same.mean() < SERVE_ROWS_EQUAL or max(gaps) > 6:
+                    problems.append(f"{spec_t.name}: card against CPU, "
+                                    f"{same.mean():.3f} of rows equal")
+                if any(p != 1 for p in passes[0]):
+                    problems.append(f"{spec_t.name}: the card tiered the "
+                                    f"queue ({passes[0]} passes)")
+            print(f"  card against CPU: {equal_rows}/{total_rows} rows "
+                  f"bitwise equal ({100 * equal_rows / total_rows:.2f}%) "
+                  f"[{time.perf_counter() - t_phase:.1f} s]")
+
+            # (b) the full studies on the card
+            walls, claims, deltas, own = {}, [], {}, {}
+            for scen, name in zip(scenarios, full):
+                spec_t = fig_load_experiment(ex, scen, backend="torch")
+                t0 = time.perf_counter()
+                with recorded_sweeps(scan) as sweeps:
+                    res = ex.run_experiment(spec_t, device=dev)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                want = ex.ExperimentResult.from_dict(stored[name][1])
+                bad, worst, own[name] = serving_checks(res, want, sweeps,
+                                                       spec_t.N)
+                if list(res.keys()) != list(stored[name][1]["reports"]):
+                    problems.append(f"{name}: tasks {list(res.keys())}")
+                deltas[name] = percentile_deltas(
+                    res.to_dict()["reports"], stored[name][1]["reports"])
+                checks = fig_load_validate(fig_load_rows(res))
+                claims += checks
+                print(f"  {name} on torch on the card ({len(spec_t.schemes)}"
+                      f" tasks x {len(FIG_LOAD_LOADS)} loads x "
+                      f"{spec_t.trials} trials, {spec_t.serving.slots} "
+                      f"slots): against the stored numpy reports, t_comp "
+                      f"worst {worst['t_comp']:.3f} SE, percentiles worst "
+                      f"{worst['pct']:.3f} of their own SE "
+                      f"({worst['pct_mean_se']:.3f} SE of the mean); "
+                      f"units_admitted equal; {len(bad)} problems; "
+                      f"validate {sum(ok for _, ok in checks)}/"
+                      f"{len(checks)}")
+                problems += [f"{name}: {p}" for p in bad]
+            bad = [n for n, ok in claims if not ok]
+            print(f"  fig_load.validate on torch: {len(claims) - len(bad)}/"
+                  f"{len(claims)} passed [{time.perf_counter() - t_phase:.1f}"
+                  f" s]")
+            problems += [f"check failed: {n}" for n in bad]
+            d_all = np.concatenate([deltas[n][0] for n in full])
+            print(f"  torch minus numpy over the {len(d_all)} (scheme, "
+                  f"load) rows: {sign_counts(d_all)}")
+
+            # (a) the full numpy reruns and (b)'s witness, from the
+            # background: the oracle at the next seed against the store
+            numpy_walls = {}
+            for name in full:
+                got = from_background(name)
+                reports, numpy_walls[name] = got["reports"], got["wall"]
+                equal = reports == stored[name][1]["reports"]
+                print(f"  store {stored[name][0][:12]} {name} (numpy, "
+                      f"background): reports == the store: {equal}")
+                if not equal:
+                    diffs, _ = stored_field_diffs(reports,
+                                                  stored[name][1]["reports"])
+                    problems.append(f"{name}: {len(diffs)} fields differ, "
+                                    f"first {diffs[:3]}")
+                wit = from_background(f"{name}@witness")["reports"]
+                dw, sew, tags = percentile_deltas(
+                    wit, stored[name][1]["reports"])
+                dt_, set_, _ = deltas[name]
+                print(f"  {name}, percentiles against the store: numpy at "
+                      f"seed {specs[name].seed + 1} (other arrivals) worst "
+                      f"{worst_of(np.abs(dw) / sew[:, None], tags)} SE of "
+                      f"the mean, {worst_of(np.abs(dw) / own[name], tags)}"
+                      f" of their own; torch (the same arrivals) worst "
+                      f"{worst_of(np.abs(dt_) / set_[:, None], tags)} and "
+                      f"{worst_of(np.abs(dt_) / own[name], tags)}; numpy "
+                      f"at seed {specs[name].seed + 1} minus the store: "
+                      f"{sign_counts(dw)}")
+
+            # (e) the CLI, from the background
+            for demo in ("serving", "serving-trace"):
+                proc = background[demo]
+                out, err = proc.communicate(timeout=600)
+                tail = out.strip().splitlines()[-1:] or [err.strip()]
+                print(f"  python -m repro_torch.experiments --demo {demo} "
+                      f"--check-cache: exit {proc.returncode}: {tail[0]}")
+                if proc.returncode != 0 or "computed in" not in out \
+                        or "check-cache: OK" not in out:
+                    problems.append(f"--demo {demo}: {err.strip()[-300:]}")
+        finally:
+            for proc in background.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for name in full:
+        print(f"  {name} wall, one run of each beside the other's: torch on"
+              f" the card {walls[name]:.3f} s ({card}), numpy on the host "
+              f"{numpy_walls[name]:.3f} s (with the witness and the demos "
+              f"in background processes)")
+
+    # (d) times, with nothing else running: one dispatch a study on each
+    # engine, warm minimum of 2 (work_exchange: every load and trial)
+    one = {}
+    for scen, name in zip(scenarios, full):
+        spec_t = fig_load_experiment(ex, scen, backend="torch")
+        one[name] = {
+            engine: min(serving_dispatch_wall(ex, spec_t, "work_exchange",
+                                              engine, where)
+                        for _ in range(2))
+            for engine, where in (("torch", dev), ("numpy", "cpu"))}
+        print(f"  {name}, the work_exchange dispatch alone (warm min of "
+              f"2): torch on the card {one[name]['torch']:.3f} s ({card}), "
+              f"numpy on the host {one[name]['numpy']:.3f} s")
+    # the queue tier, on and off, on the card and on the CPU (one run each
+    # of the stationary study's fixed dispatch)
+    spec_t = fig_load_experiment(ex, "stationary", backend="torch")
+    tier = {}
+    for where in (dev, torch.device("cpu")):
+        for on in (True, False):
+            scan._TIER_DEVICES = (where.type,) if on else ()
+            try:
+                tier[where.type, on] = serving_dispatch_wall(
+                    ex, spec_t, "fixed", "torch", where)
+            finally:
+                scan._TIER_DEVICES = ("cpu",)
+    print("  the queue tier, fig-load-stationary's fixed dispatch: "
+          + "; ".join(f"{w} on {tier[w, True]:.3f} s, off "
+                      f"{tier[w, False]:.3f} s" for w in ("cuda", "cpu"))
+          + f" ({card}); the tier runs on {scan._TIER_DEVICES}")
+    from torch.profiler import ProfilerActivity, profile
+    spec_q = fig_load_experiment(ex, "stationary", True, backend="torch")
+    het = spec_q.grid.specs()[0]
+    with recorded_sweeps(scan) as sweeps, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scan.scan_sweep(het, "work_exchange", {}, spec_q.serving,
+                        spec_q.N, spec_q.trials, spec_q.seed, 0,
+                        device=dev)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    meta = sweeps[0][2]
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in kern)
+    dev_us = sum(e.self_device_time_total for e in kern)
+    steps = meta["S"] * meta["passes"]
+    print(f"  profiled dispatch ({spec_q.name}, work_exchange, "
+          f"{meta['passes']} pass x {meta['S']} slots): wall "
+          f"{prof_wall:.3f} s, {launches} device kernels, "
+          f"{launches / steps:.1f} a slot; "
+          + (f"device busy {dev_us / 1e3:.3f} ms "
+             f"({100 * dev_us / (prof_wall * 1e6):.2f}% of wall)"
+             if dev_us > 0 else "the profiler recorded no device time "
+             "(busy share not measured)"))
+    if launches == 0:
+        problems.append("the profiled dispatch launched nothing on the card")
+
+    # one dispatch at 64 x the study's trials: the host draws its service
+    # budgets (S x 4096 x K Poisson), then the same slot loop
+    loop_s = []
+    run_rows = scan._run_rows
+
+    def timed_rows(*args, **kw):
+        t = time.perf_counter()
+        out = run_rows(*args, **kw)
+        loop_s.append(time.perf_counter() - t)
+        return out
+
+    spec_t = fig_load_experiment(ex, "stationary", backend="torch")
+    scan._run_rows = timed_rows
+    try:
+        t0 = time.perf_counter()
+        big = scan.scan_sweep(het, "work_exchange", {}, spec_t.serving,
+                              spec_t.N, SERVE_BIG_TRIALS, spec_t.seed, 0,
+                              device=dev)
+        torch.cuda.synchronize()
+        big_s = time.perf_counter() - t0
+    finally:
+        scan._run_rows = run_rows
+    rows = len(FIG_LOAD_LOADS) * SERVE_BIG_TRIALS
+    finite = all(np.isfinite(r.t_comp) for r in big)
+    print(f"  fig-load-stationary's work_exchange dispatch at {rows} rows "
+          f"({SERVE_BIG_TRIALS} trials) on torch on the card: {big_s:.3f} s"
+          f", {sum(loop_s):.3f} s of it in {len(loop_s)} slot loop, the "
+          f"rest host draws and copies; at 64 rows "
+          f"{one[full[0]]['torch']:.3f} s ({card}); finite {finite}")
+    if not finite:
+        problems.append("the 4096-row run gave non-finite reports")
+    print(f"  phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        fail("serving: " + "; ".join(problems[:12]))
 
 
 def main() -> None:
@@ -3539,6 +4178,7 @@ def main() -> None:
     exact_oracle_phase(torch, dev, points, specs)
     het_kernels = het_phases(torch, dev)
     experiment_kernels = experiment_phase(torch, dev)
+    serving_phase(torch, dev)
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",

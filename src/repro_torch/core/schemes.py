@@ -191,10 +191,12 @@ class Scheme:
 
     Subclasses implement ``initial_sizes`` + ``simulate`` and may override
     ``mc`` with a trial-vectorized engine; the default ``mc`` loops
-    ``simulate``.
+    ``simulate``.  ``redundant`` marks schemes that ship more than N units
+    (coded redundancy), where exact unit-level conservation does not apply.
     """
 
     name: str = "abstract"
+    redundant: bool = False
     plan_wait_all: bool = True    # static schemes wait for the max
     # schemes whose mc/mc_grid accept a per-exchange-round rate_schedule
     supports_rate_schedule: bool = False
@@ -539,6 +541,8 @@ class MDSScheme(Scheme):
     ``cuda`` it is the common-random-numbers sweep of the reference's
     transform backends.
     """
+
+    redundant = True    # K * ceil(N/L) coded units are shipped for N useful
 
     def __init__(self, L: Optional[int] = None, opt_trials: int = 64):
         self.L = L
@@ -1017,6 +1021,8 @@ class HetMDSScheme(Scheme):
     The draws are numpy's on the host whatever the backend.
     """
 
+    redundant = True
+
     def __init__(self, redundancy: float = 1.25):
         if redundancy < 1.0:
             raise ValueError("redundancy must be >= 1")
@@ -1192,6 +1198,7 @@ class GradientCodedScheme(Scheme):
     time the finished workers jointly cover all N units (no reassignment,
     no coordination -- redundancy instead of exchange)."""
 
+    redundant = True
     # make_scheduler returns a one-shot CoverScheduler (whole-queue
     # finish-time feedback), not a MasterScheduler: training executors
     # branch on it
@@ -1256,6 +1263,8 @@ class HedgedScheme(Scheme):
     scheme degenerates to the fixed assignment.  The draws are numpy's on
     the host whatever the backend.
     """
+
+    redundant = True    # the straggler's shard ships twice
 
     def _layout(self, het: HetSpec, N: int):
         """Per-worker primary loads + (spare, straggler) worker ids."""

@@ -31,9 +31,15 @@ Module map:
 The scenario axis (``grid=``) is pluggable: any family registered in
 ``repro_torch.scenarios.SCENARIO_REGISTRY`` (uniform_random / explicit /
 trace_corpus / drifting / hcmm_sweep).
+
+The arrival axis is pluggable too: ``ExperimentSpec(serving=
+ServingConfig(loads=(0.5, 0.8, 0.95)))`` sweeps offered load through the
+streaming-arrival engine (``repro_torch.serving``), one report row per
+(grid point x load) with latency percentiles in ``extra``.
 """
 from ..scenarios import (SCENARIO_REGISTRY, ScenarioFamily, get_family,
                          list_families)
+from ..serving import ServingConfig
 
 from .engine import ExperimentResult, execute_plan, run_experiment
 from .plan import Plan, SHARDED_BACKENDS, Task, compile_plan
@@ -43,7 +49,7 @@ from .store import DEFAULT_STORE_ROOT, ResultsStore, default_store
 
 __all__ = [
     "SPEC_VERSION", "ExperimentSpec", "ScenarioGrid", "SchemeSpec",
-    "scheme_spec",
+    "scheme_spec", "ServingConfig",
     "SCENARIO_REGISTRY", "ScenarioFamily", "get_family", "list_families",
     "Plan", "Task", "SHARDED_BACKENDS", "compile_plan",
     "ExperimentResult", "execute_plan", "run_experiment",

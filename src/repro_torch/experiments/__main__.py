@@ -12,6 +12,11 @@
     python -m repro_torch.experiments --demo hcmm
     python -m repro_torch.experiments --demo train
 
+    # streaming arrivals: the schemes as dispatch policies, swept over
+    # offered load on the torch slot-step engine (on the card by default)
+    python -m repro_torch.experiments --demo serving
+    python -m repro_torch.experiments --demo serving-trace --device cpu
+
     # prove the cache: second run must be a content-address hit
     python -m repro_torch.experiments --demo quick --check-cache
 
@@ -23,9 +28,8 @@
     # standard errors (hash prefixes resolve when unambiguous)
     python -m repro_torch.experiments compare 825d75a6 07eaead1
 
-The ``serving``, ``serving-trace``, ``live`` and ``live-fault`` demos
-need axes not ported yet (ROADMAP.md, Queue 1 items 9 and 10): they exit
-1 with that message.
+The ``live`` and ``live-fault`` demos need the live control plane, not
+ported yet (ROADMAP.md, Queue 1 item 10): they exit 1 with that message.
 
 Exit codes: 0 ok, 1 bad spec / axis not ported / failed --check-cache /
 unknown hash.
@@ -41,6 +45,7 @@ import numpy as np
 from ..device import DEFAULT_DEVICE
 from ..scenarios import DriftingScenario, ExplicitScenario, HCMMSweepScenario
 from ..scenarios.traces import DEFAULT_CORPUS, TraceCorpusScenario
+from ..serving import ServingConfig
 
 from .engine import ExperimentResult, run_experiment
 from .spec import LATER_AXES, ExperimentSpec, ScenarioGrid, scheme_spec
@@ -49,7 +54,7 @@ from .store import ResultsStore, default_store
 DEMOS = ("quick", "drifting", "trace", "hcmm", "serving", "serving-trace",
          "live", "live-fault", "train")
 # demos whose spec needs an axis not ported yet
-LATER_DEMOS = ("serving", "serving-trace", "live", "live-fault")
+LATER_DEMOS = ("live", "live-fault")
 
 
 def demo_spec(kind: str) -> ExperimentSpec:
@@ -89,6 +94,33 @@ def demo_spec(kind: str) -> ExperimentSpec:
                      scheme_spec("trace_replay", key="trace_replay@w0",
                                  **grid.trace_replay_params(0))),
             N=8_000, trials=8, seed=1234)
+    if kind == "serving":
+        # streaming arrivals: the same schemes as dispatch policies,
+        # swept over offered load, on the torch engine
+        return ExperimentSpec(
+            name="demo-serving",
+            grid=ScenarioGrid(K=8, points=[(20.0, 20.0 ** 2 / 6, 5)]),
+            schemes=(scheme_spec("work_exchange"),
+                     scheme_spec("fixed"),
+                     scheme_spec("het_mds")),
+            N=100, trials=8, seed=1234,
+            serving=ServingConfig(loads=(0.6, 0.9), slots=600,
+                                  deadline_slo=4.0, backend="torch"))
+    if kind == "serving-trace":
+        # measured rates AND measured demand: the trace corpus drives
+        # both the per-slot service rates (scenario schedule) and the
+        # arrival intensity (trace arrival process)
+        grid = TraceCorpusScenario(corpus=DEFAULT_CORPUS, K=16,
+                                   windows=((0, 0),), epochs=12)
+        return ExperimentSpec(
+            name="demo-serving-trace",
+            grid=grid,
+            schemes=(scheme_spec("work_exchange"),
+                     scheme_spec("work_exchange_unknown")),
+            N=100, trials=8, seed=1234,
+            serving=ServingConfig(loads=(0.7,), arrival="trace",
+                                  arrival_params={"epochs": 12},
+                                  slots=600, backend="torch"))
     if kind in LATER_DEMOS:
         raise NotImplementedError(f"demo {kind!r}: {LATER_AXES}")
     if kind == "train":
@@ -141,6 +173,24 @@ def show(result: ExperimentResult, store: ResultsStore) -> None:
           f"{store.path_for(result.spec_hash)}")
     for key, rows in result.reports.items():
         for g, rep in enumerate(rows):
+            if rep.extra.get("serving"):
+                # serving rows: the latency surface, not batch T_comp
+                slo = (f" slo_miss={rep.extra['slo_miss_rate']:.3f}"
+                       if "slo_miss_rate" in rep.extra else "")
+                if rep.extra.get("latency_censored"):
+                    # zero completions: percentiles are horizon bounds
+                    slo += "  [CENSORED: latency >= horizon]"
+                elif rep.extra.get("censored_frac"):
+                    slo += (f"  [censored_frac="
+                            f"{rep.extra['censored_frac']:.2f}]")
+                print(f"  {key:24s} pt {rep.extra.get('grid_point', 0):g} "
+                      f"load {rep.extra['offered_load']:g}: "
+                      f"sojourn={rep.t_comp:8.4f} "
+                      f"p50={rep.extra['p50']:.4f} "
+                      f"p99={rep.extra['p99']:.4f} "
+                      f"thru={rep.extra['throughput_jobs']:.2f}/s "
+                      f"reject={rep.extra['reject_rate']:.3f}{slo}")
+                continue
             tr = rep.extra.get("training")
             if tr:
                 tgt = ("" if "wall_to_target" not in tr else
@@ -208,7 +258,7 @@ def cmd_ls(argv) -> int:
         try:
             result = store.get(h)
         except NotImplementedError:
-            print(f"{h[:16]}  (a serving or live entry: not ported yet)")
+            print(f"{h[:16]}  (a live entry: not ported yet)")
             continue
         if result is None:
             print(f"{h[:16]}  (unreadable or mismatched entry)")
@@ -220,6 +270,19 @@ def cmd_ls(argv) -> int:
               f"{len(spec.grid):4d} {shown:28s} {str(spec.backend):7s} "
               f"{spec.devices!s:>3s} {spec.N:9d} {spec.trials:6d} "
               f"{result.wall_s:8.3f}")
+        if spec.serving is not None:
+            # serving entries: per-scheme p99 at the heaviest swept load
+            top = max(spec.serving.loads)
+            parts = []
+            for key, rows in result.reports.items():
+                vals = [r.extra["p99"] for r in rows
+                        if "p99" in r.extra
+                        and r.extra.get("offered_load") == top]
+                if vals:
+                    parts.append(f"{key}={sum(vals) / len(vals):.3g}")
+            if parts:
+                print(f"{'':18s}serving p99@load={top:g}: "
+                      + "  ".join(parts))
         if spec.training is not None:
             # training entries: per-scheme final loss (identical across
             # schemes by work conservation) and mean total wall
@@ -292,6 +355,18 @@ def cmd_compare(argv) -> int:
                 mark = "  <-- differs, no SE (trials too small)"
             print(f"  {key:24s} {g:3d} {ra.t_comp:12.4f} {rb.t_comp:12.4f}"
                   f" {delta:+12.4f} {label}{mark}")
+            if ra.extra.get("serving") and rb.extra.get("serving"):
+                # serving rows carry a latency surface: surface the
+                # percentile / SLO deltas instead of dropping them
+                cens = ("" if not (ra.extra.get("latency_censored")
+                                   or rb.extra.get("latency_censored"))
+                        else "  [censored: horizon bound, not measured]")
+                for field in ("p50", "p99", "slo_miss_rate"):
+                    if field in ra.extra and field in rb.extra:
+                        va, vb = ra.extra[field], rb.extra[field]
+                        print(f"    {field:>22s} {va:12.4f} {vb:12.4f}"
+                              f" {vb - va:+12.4f}{cens}")
+                        cens = ""
         if len(rows_a) != len(rows_b):
             print(f"  {key:24s} (grids differ: {len(rows_a)} vs "
                   f"{len(rows_b)} points; compared the overlap)")

@@ -10,7 +10,10 @@ on ``numpy`` everything draws on the host, bit for bit the reference.
 ``device=`` (default ``"cuda"``, which raises without a card) is an
 execution argument, not a spec field, so it never enters the hash: the
 ``cuda`` kernel and its plain version are bitwise equal, and the
-``numpy`` engine runs on the host whatever the device.
+``numpy`` engine runs on the host whatever the device.  A serving spec
+runs every scheme task as a dispatch policy through the queueing engine
+its plan resolved (``repro_torch.serving``): ``numpy`` on the host, bit
+for bit the reference's, or ``torch`` on ``device``.
 
 Seed discipline: each task draws from its own fresh
 ``default_rng(task.seed)``, so per-task numbers are independent of task
@@ -104,6 +107,22 @@ def _execute_training(plan: Plan, device) -> Dict[str, List[MCReport]]:
     return reports
 
 
+def _execute_serving(plan: Plan, device) -> Dict[str, List[MCReport]]:
+    """Serving specs: every scheme task becomes a dispatch policy run
+    through the slotted queueing engine -- one report row per (grid point
+    x offered load) instead of per grid point.  The engine is the plan's
+    resolved serving backend (``SERVING_BACKENDS``): the numpy oracle
+    loop on the host, or the torch slot-step engine on ``device``."""
+    from ..serving import run_serving_grid
+    reports: Dict[str, List[MCReport]] = {}
+    for task in plan.tasks:
+        reports[task.key] = run_serving_grid(
+            task.scheme, task.params_dict, plan.het_specs,
+            plan.spec.serving, plan.spec.N, plan.spec.trials, task.seed,
+            rate_schedules=plan.rate_schedules, device=device)
+    return reports
+
+
 def _stamp_nominal(rows: List[MCReport]) -> None:
     """The grid drifts but this scheme cannot follow it: stamp the rows so
     stored results (and the CLI table) never read as if the scheme ran
@@ -117,7 +136,9 @@ def execute_plan(plan: Plan, device=DEFAULT_DEVICE) -> ExperimentResult:
     dev = resolve_device(device)
     spec = plan.spec
     t0 = time.perf_counter()
-    if spec.training is not None:
+    if spec.serving is not None:
+        reports = _execute_serving(plan, dev)
+    elif spec.training is not None:
         reports = _execute_training(plan, dev)
     elif spec.panel == "fused":
         # fused whole-panel dispatch: the WE known/unknown pair becomes

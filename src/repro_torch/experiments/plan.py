@@ -5,7 +5,10 @@ port of ``repro.experiments.plan``.
 execution ``Plan``:
 
 * the sampler backend is resolved (the explicit field, else the port's
-  default ``cuda``) and validated against the registry;
+  default ``cuda``) and validated against the registry; a serving spec's
+  queueing engine is resolved too (the explicit field, else
+  ``$REPRO_SERVING_BACKEND``, else ``numpy``), and its concrete name
+  lands in the stored spec;
 * the device count is normalized to a concrete int: 1, since no backend
   of the port has a multi-device executor yet (``SHARDED_BACKENDS`` is
   empty), as the reference pins every backend without one;
@@ -82,6 +85,16 @@ def compile_plan(spec: ExperimentSpec) -> Plan:
     # executor (the row split over several cards is ROADMAP.md, Queue 1
     # item 12)
     devices = 1
+    if spec.serving is not None:
+        # the queueing engine resolves like the sampler backend does
+        # (explicit field > $REPRO_SERVING_BACKEND > numpy) and the
+        # concrete name lands in the stored spec: the cache address
+        # promises which engine produced the numbers.  No serving engine
+        # shards yet, so devices stays 1
+        sname = spec.serving.resolve_backend()
+        if sname != spec.serving.backend:
+            spec = spec.replace(
+                serving=dataclasses.replace(spec.serving, backend=sname))
     tasks = []
     for s in spec.schemes:
         get_scheme(s.scheme, **s.params_dict)  # fail fast

@@ -26,11 +26,12 @@ of the spec and hence of the hash: one hash, one set of numbers.  A spec
 serializes and hashes exactly as the reference's, so the port reads the
 reference's store entries at their addresses.
 
-The reference's streaming-arrival (``serving=``) and live control-plane
-(``execution="live"``, ``live=``) axes are not ported yet: a spec that
-sets either raises ``NotImplementedError`` naming its ROADMAP item, at
-construction and in ``from_dict``.  At their defaults their keys are
-omitted from serialization, as in the reference.
+``serving=`` attaches the streaming-arrival axis
+(``repro_torch.serving.ServingConfig``).  The reference's live
+control-plane axis (``execution="live"``, ``live=``) is not ported yet:
+a spec that sets it raises ``NotImplementedError`` naming its ROADMAP
+item, at construction and in ``from_dict``.  At their defaults the keys
+of both axes are omitted from serialization, as in the reference.
 
 ``repro_torch.experiments.plan`` compiles a spec into an execution
 ``Plan``; ``repro_torch.experiments.engine`` runs the plan.
@@ -44,19 +45,19 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 from ..core.types import HetSpec
 from ..hettrain.config import TrainConfig
+from ..serving.config import ServingConfig
 from ..scenarios import (ExplicitScenario, ScenarioFamily, ScenarioPoint,
                          UniformRandomScenario, scenario_from_dict)
 
 SPEC_VERSION = 1
 
-# the reference's axes the port has not taken yet, by ROADMAP item
-LATER_AXES = ("the streaming-arrival axis (serving=) and the live "
-               "control plane (execution='live', live=) are not ported "
-               "yet (ROADMAP.md, Queue 1 items 9 and 10)")
+# the reference's axis the port has not taken yet, by ROADMAP item
+LATER_AXES = ("the live control plane (execution='live', live=) is not "
+              "ported yet (ROADMAP.md, Queue 1 item 10)")
 
 
-def _refuse_later_axes(serving, execution, live) -> None:
-    if serving is not None or execution == "live" or live is not None:
+def _refuse_later_axes(execution, live) -> None:
+    if execution == "live" or live is not None:
         raise NotImplementedError(LATER_AXES)
 
 
@@ -174,8 +175,15 @@ class ExperimentSpec:
     straggler-wait fractions in ``extra["training"]``.  ``None`` (the
     default) serializes with the key omitted.
 
-    ``serving``, ``execution="live"`` and ``live`` raise
-    ``NotImplementedError`` (ROADMAP.md, Queue 1 items 9 and 10).
+    ``serving`` attaches a streaming-arrival axis
+    (``repro_torch.serving.ServingConfig``): every scheme task then runs
+    as a dispatch policy through the slotted queueing engine at each
+    offered load, one report row per (grid point x load level) with the
+    latency percentiles in ``extra``.  ``None`` (the default) serializes
+    with the key omitted.
+
+    ``execution="live"`` and ``live`` raise ``NotImplementedError``
+    (ROADMAP.md, Queue 1 item 10).
     """
 
     name: str
@@ -186,7 +194,7 @@ class ExperimentSpec:
     seed: int = 0
     backend: Optional[str] = None
     devices: Union[int, str] = 1
-    serving: Optional[Any] = None
+    serving: Optional[ServingConfig] = None
     execution: str = "mc"
     live: Optional[Any] = None
     panel: str = "per_scheme"
@@ -198,17 +206,27 @@ class ExperimentSpec:
             raise TypeError(f"grid must be a registered ScenarioFamily "
                             f"(or built via ScenarioGrid); got "
                             f"{type(self.grid).__name__}")
+        if self.serving is not None and not isinstance(self.serving,
+                                                       ServingConfig):
+            raise TypeError(f"serving must be a ServingConfig or None; "
+                            f"got {type(self.serving).__name__}")
         if self.execution not in ("mc", "live"):
             raise ValueError(f"execution must be 'mc' or 'live'; "
                              f"got {self.execution!r}")
-        _refuse_later_axes(self.serving, self.execution, self.live)
+        _refuse_later_axes(self.execution, self.live)
         if self.panel not in ("per_scheme", "fused"):
             raise ValueError(f"panel must be 'per_scheme' or 'fused'; "
                              f"got {self.panel!r}")
+        if self.panel == "fused" and self.serving is not None:
+            raise ValueError("panel='fused' applies to batch MC only; "
+                             "drop serving=")
         if self.training is not None:
             if not isinstance(self.training, TrainConfig):
                 raise TypeError(f"training must be a TrainConfig or None; "
                                 f"got {type(self.training).__name__}")
+            if self.serving is not None:
+                raise ValueError("training= and serving= are mutually "
+                                 "exclusive axes")
             if self.panel != "per_scheme":
                 raise ValueError("training= runs per-scheme; drop "
                                  "panel='fused'")
@@ -240,6 +258,9 @@ class ExperimentSpec:
             "backend": self.backend,
             "devices": self.devices,
         }
+        if self.serving is not None:
+            # key omitted when absent: pre-serving hashes stay valid
+            d["serving"] = self.serving.to_dict()
         if self.panel != "per_scheme":
             # key omitted at the default: pre-panel hashes survive
             d["panel"] = self.panel
@@ -250,8 +271,8 @@ class ExperimentSpec:
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentSpec":
-        _refuse_later_axes(d.get("serving"), d.get("execution", "mc"),
-                           d.get("live"))
+        _refuse_later_axes(d.get("execution", "mc"), d.get("live"))
+        serving = d.get("serving")
         training = d.get("training")
         return cls(name=d["name"], grid=ScenarioGrid.from_dict(d["grid"]),
                    schemes=tuple(SchemeSpec.from_dict(s)
@@ -259,6 +280,8 @@ class ExperimentSpec:
                    N=int(d["N"]), trials=int(d["trials"]),
                    seed=int(d.get("seed", 0)), backend=d.get("backend"),
                    devices=d.get("devices", 1),
+                   serving=(None if serving is None
+                            else ServingConfig.from_dict(serving)),
                    panel=d.get("panel", "per_scheme"),
                    training=(None if training is None
                              else TrainConfig.from_dict(training)),

@@ -6,14 +6,14 @@ One executor drives one optimizer step's worth of *virtual* scheduling
 registry can produce a scheduler for:
 
 * **exchange protocols** (``make_scheduler`` -> ``MasterScheduler``):
-  work_exchange known/unknown and the static fixed / uniform
-  assignments (threshold 1e9 => one wait-all epoch);
+  work_exchange known/unknown, trace_replay, and the static fixed /
+  uniform assignments (threshold 1e9 => one wait-all epoch);
 * **cover protocols** (``make_scheduler`` -> ``CoverScheduler``,
   flagged ``cover``): gradient_coded races whole replicated queues and
   completes at coverage;
-* **simulate-only schemes** (oracle, mds): no id-aware protocol, so the
-  runner times steps through ``scheme.simulate`` at the nominal rates
-  instead (stamped ``nominal_rates_only`` under drift).
+* **simulate-only schemes** (oracle, mds, het_mds, hedged): no id-aware
+  protocol, so the runner times steps through ``scheme.simulate`` at the
+  nominal rates instead (stamped ``nominal_rates_only`` under drift).
 
 The executor never touches gradients: it returns *who did what, when*
 (``groups``) plus the timing ledger, and the gradient engine runs one

@@ -659,3 +659,71 @@ def test_het_trainer_is_bitwise_across_policies_on_the_card(cuda_device):
     for other in finals[1:]:
         for x, y in zip(finals[0], other):
             assert torch.equal(x, y)
+
+
+SERVING_SCHEMES = ("work_exchange_unknown", "oracle", "hedged", "het_mds",
+                   "mds", "gradient_coded", "uniform")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SERVING_SCHEMES)
+def test_serving_engine_on_the_card_is_the_cpu_row_by_row(cuda_device,
+                                                          name):
+    """The torch serving engine's integer ledger and completion histogram
+    on the card against the same engine on the CPU, row by row: both read
+    the same host-drawn arrivals and service budgets, and every float sum
+    that feeds an integer is order-free (``scan._wsum``), so the rows are
+    expected bitwise; at least 99% must be, as ``chip_smoke.py`` holds
+    the fig-load studies.  The CPU tiers its queue and the card does
+    not, so this also holds the tier's splice."""
+    from repro_torch.core import HetSpec
+    from repro_torch.serving import ServingConfig, scan
+    het = HetSpec.uniform_random(6, 20.0, 20.0 ** 2 / 6,
+                                 np.random.default_rng(3))
+    cfg = ServingConfig(loads=(0.7, 0.95), slots=300, deadline_slo=2.5,
+                        admission="deadline")
+    sched = het.lambdas * np.random.default_rng(2).uniform(0.5, 1.2, (5, 6))
+    args = (het, name, {}, cfg, 12, 8, 21, 0, sched)
+    card, meta = scan.sweep_rows(*args, device=cuda_device)
+    host, _ = scan.sweep_rows(*args, device="cpu")
+    same = np.ones(16, dtype=bool)
+    for key in scan.LEDGER_FIELDS + ("hist",):
+        eq = card[key] == host[key]
+        same &= eq.all(axis=1) if eq.ndim == 2 else eq
+    assert same.mean() >= 0.99, f"{same.mean():.3f} of rows equal"
+    for key in ("moved_w", "qd_sum"):
+        assert np.array_equal(card[key][same], host[key][same])
+    # the card runs one full-width pass: the queue tiers on the CPU only
+    assert meta["passes"] == 1
+
+
+@pytest.mark.gpu
+def test_serving_geometric_sizes_and_the_layer_on_the_card(cuda_device):
+    """Geometric job sizes draw on the card's generator (no tiering) and
+    close the ledger; a serving spec on the torch engine runs through
+    ``run_experiment`` on the card, every row stamped ``torch``."""
+    from repro_torch.core import HetSpec
+    from repro_torch.experiments import ExperimentSpec, ScenarioGrid, \
+        run_experiment, scheme_spec
+    from repro_torch.serving import ServingConfig, run_serving_grid
+    het = HetSpec.uniform_random(6, 20.0, 20.0 ** 2 / 6,
+                                 np.random.default_rng(3))
+    cfg = ServingConfig(loads=(0.6, 0.9), slots=300,
+                        job_units_dist="geometric", backend="torch")
+    for rep in run_serving_grid("hedged", {}, [het], cfg, 12, 8, 5,
+                                device=cuda_device):
+        e = rep.extra
+        assert e["serving_backend"] == "torch" and e["completed_jobs"] > 0
+        assert e["units_admitted"] == pytest.approx(
+            e["units_served"] + e["units_cancelled"] + e["units_backlog"])
+    spec = ExperimentSpec(
+        name="card-serving",
+        grid=ScenarioGrid(K=8, points=[(20.0, 20.0 ** 2 / 6, 5)]),
+        schemes=(scheme_spec("work_exchange"), scheme_spec("het_mds")),
+        N=100, trials=4, seed=1234,
+        serving=ServingConfig(loads=(0.6, 0.9), slots=300,
+                              deadline_slo=4.0, backend="torch"))
+    result = run_experiment(spec, device=cuda_device)
+    rows = [r for key in result.keys() for r in result.report(key)]
+    assert len(rows) == 4 and result.env["device"].startswith("cuda")
+    assert all(r.extra["serving_backend"] == "torch" for r in rows)

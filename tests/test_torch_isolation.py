@@ -21,8 +21,9 @@ PKG = Path(repro_torch.__file__).resolve().parent
 
 def test_imports_and_runs_with_jax_and_repro_blocked():
     """In a fresh interpreter where importing ``jax`` or ``repro`` fails,
-    the port imports and runs a small Monte Carlo on the CPU, and serves
-    the recurrentgemma and granite-moe smoke configs."""
+    the port imports and runs a small Monte Carlo on the CPU, serves the
+    recurrentgemma and granite-moe smoke configs, and runs a tiny sweep
+    of the torch serving engine."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -46,6 +47,11 @@ def test_imports_and_runs_with_jax_and_repro_blocked():
         "torch.zeros((2, 20), dtype=torch.long)}, m.init_cache(2, 24, "
         "'cpu'), 4)\n"
         "    assert toks.shape == (2, 4)\n"
+        "from repro_torch.serving import ServingConfig, run_serving_grid\n"
+        "sv = run_serving_grid('work_exchange', {}, [het], ServingConfig("
+        "loads=(0.6,), slots=60), 10, 2, 0, backend='torch', "
+        "device='cpu')[0]\n"
+        "assert sv.extra['serving_backend'] == 'torch'\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok', r.t_comp)\n")
@@ -70,7 +76,7 @@ def test_source_imports_no_jax_and_no_repro():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 40
     for sub in ("core", "distributed", "hettrain", "scenarios",
-                "experiments"):
+                "experiments", "serving"):
         assert any(p.parent == PKG / sub for p in files), sub
     for path in files:
         for mod in _imported_modules(path):

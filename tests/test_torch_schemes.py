@@ -172,11 +172,13 @@ def test_plan_matches_reference(name):
 
 def test_later_slices_raise_not_implemented():
     """What the port has not taken yet raises and names its ROADMAP item:
-    the serving and live axes of an experiment spec (Queue 1 items 9 and
-    10); the reference's ``jax`` backend and the ``torch`` backend that
-    takes its role (item 5) are not registered, so naming either raises
-    the registry's ``KeyError`` listing what is.  The three scenario
-    schemes and ``HetTrainer``'s trace corpora no longer raise."""
+    the live axis of an experiment spec (Queue 1 item 10); the reference's
+    ``jax`` backend and the ``torch`` backend that takes its role (item 5)
+    are not registered, so naming either raises the registry's
+    ``KeyError`` listing what is.  The three scenario schemes,
+    ``HetTrainer``'s trace corpora and the serving axis no longer raise:
+    a serving spec reads back from its dict, and a dict in place of a
+    ``ServingConfig`` is a ``TypeError``, as in the reference."""
     from repro_torch.experiments import ExperimentSpec, ScenarioGrid, \
         scheme_spec
     for name in ("het_mds", "hcmm", "trace_replay", "hedged",
@@ -185,13 +187,18 @@ def test_later_slices_raise_not_implemented():
                                          "hedged")
     base = dict(name="x", grid=ScenarioGrid(K=4, points=[(4.0, 1.0, 1)]),
                 schemes=(scheme_spec("fixed"),), N=100, trials=2)
-    for later in (dict(serving={"loads": [0.5]}), dict(execution="live"),
+    for later in (dict(execution="live"),
                   dict(live={"transport": "inproc"})):
-        with pytest.raises(NotImplementedError, match="items 9 and 10"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             ExperimentSpec(**base, **later)
-        with pytest.raises(NotImplementedError, match="items 9 and 10"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             ExperimentSpec.from_dict({**ExperimentSpec(**base).to_dict(),
                                       **later})
+    with pytest.raises(TypeError, match="ServingConfig"):
+        ExperimentSpec(**base, serving={"loads": [0.5]})
+    served = ExperimentSpec.from_dict({**ExperimentSpec(**base).to_dict(),
+                                       "serving": {"loads": [0.5]}})
+    assert served.serving.loads == (0.5,)
     for name in ("jax", "torch"):
         with pytest.raises(KeyError, match="cuda.*numpy|numpy.*cuda"):
             resolve_backend(name)
