@@ -202,8 +202,8 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
 23. the experiment layer (``repro_torch.experiments``), every store it
     writes a temporary one: (i) each committed ``results/store`` entry's
     spec but the serving ones (phase 24's), read by the port, hashes to
-    its file name, the live one raises ``NotImplementedError`` naming
-    ROADMAP.md's Queue 1 item 10, and each batch Monte-Carlo entry (fig5,
+    its file name (the live one is rerun in phase 25), and each batch
+    Monte-Carlo entry (fig5,
     fig6, fig7, their
     ``-quick`` cuts, the ``mc`` demo-live; all numpy) rerun through
     ``run_experiment(..., device="cuda")`` gives every stored report
@@ -267,7 +267,33 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     ``work_exchange``), and one dispatch's wall at 4 loads x 1024 trials
     (4096 rows); (e) ``--demo serving`` and ``--demo serving-trace`` on
     the card in subprocesses: ``computed in``, then
-    ``check-cache: OK``.
+    ``check-cache: OK``;
+25. the live control plane (``repro_torch.control``; no kernel: the
+    reference's payload is a jitted ``a @ x``, not a ``pallas_call``), the
+    workers' matmul payload on the card: (a) the stored ``demo-live``
+    entry hashes to its name and reruns through ``run_experiment(...,
+    device="cuda")`` on a temporary store: each report's ``t_comp``
+    within ``max(8 combined SE, 0.25 t_comp)`` of the stored one,
+    ``mds``'s and ``hedged``'s ``n_comm`` the stored 668 and 267,
+    ``fixed`` one iteration and ``n_comm`` 0, every ledger conserved,
+    ``units_completed`` trials x N for the exchange schemes, every payload
+    verified; (b) ``--demo live`` and ``--demo live-fault`` in
+    subprocesses: ``computed in``, then ``check-cache: OK``, the fault run
+    with ``workers_lost [0]``; (c) at the paper's scale (K 50, N 1e6, mu
+    50, sigma^2 = mu^2/6, ``LiveConfig()``) ``work_exchange``,
+    ``work_exchange_unknown`` and ``fixed`` over ``inproc``, 2 episodes
+    each: every unit completed, the ledger conserved, the payload
+    verified, ``t_comp`` within the band of the port's numpy Monte Carlo
+    at the same point (400 trials); (d) ``work_exchange`` once over
+    ``tcp`` and once over ``flaky(inner="tcp", drop=0.05, seed=3)``, the
+    same completion checks and retries on the flaky run, ``t_comp``
+    printed against Monte Carlo, not held (the wire's encoding of 1e6
+    unit ids is part of what is measured); (e) a payload-only loop of
+    200 queues of N/K units under ``torch.cuda.set_sync_debug_mode
+    ("error")``: no call waits for the device; (f) a ``tcp`` listener
+    whose handlers never close their comms stops within 1 s.  Each run
+    prints its episode wall, ``coordination_frac``, messages, retries and
+    the payload's device milliseconds.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
@@ -444,6 +470,25 @@ BOOT_RESAMPLES = 400
 # card against CPU: the share of rows whose integer ledger and histogram
 # must be equal
 SERVE_ROWS_EQUAL = 0.99
+# phase 25: the live control plane.  A live mean is held against another
+# mean within the reference battery's band (tests/test_control.py):
+# 8 combined SE or a quarter of t_comp, whichever is wider -- an episode's
+# t_comp carries the host's scheduling delays, which no SE of the service
+# model covers.  The stored demo-live entry; its coded rows' n_comm
+# (K * ceil(N / L) - N for mds at L = 3, the straggler's duplicated shard
+# for hedged).  The full-size point is the paper's Figure 5 scale at one
+# grid point (K 50, N 1e6, mu 50, sigma^2 = mu^2/6 from seed 0) with
+# LiveConfig at its defaults: the payload's A is 1e6 x 4 x 64 float32, 1 GB
+# on the card in every episode
+LIVE_BAND_SE, LIVE_BAND_FRAC = 8.0, 0.25
+LIVE_ENTRY = ("f8ff00118f49ebce9a9efb32b2f38d57202824878cea2972cbea8a9bd9"
+              "37ce88")
+LIVE_STORED_N_COMM = {"mds": 668.0, "hedged": 267.0}
+LIVE_MU, LIVE_EPISODES, LIVE_MC_TRIALS, LIVE_SEED = 50.0, 2, 400, 1234
+LIVE_FULL_SCHEMES = ("work_exchange", "work_exchange_unknown", "fixed")
+LIVE_FLAKY = {"inner": "tcp", "drop": 0.05, "seed": 3}
+LIVE_STOP_S = 1.0
+LIVE_PAYLOAD_CALLS = 200
 REPLACES = {"linear_scan": "src/repro/kernels/linear_scan/kernel.py:22",
             "flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:30",
@@ -3218,14 +3263,14 @@ def experiment_phase(torch, dev):
         name = d["spec"]["name"]
         if "serving" in d["spec"]:
             continue        # phase 24
-        try:
-            spec = ex.ExperimentSpec.from_dict(d["spec"])
-        except NotImplementedError as e:
-            ok = "item 10" in str(e)
-            print(f"  store {path.stem[:12]} {name}: "
-                  f"{'refused' if ok else 'FAIL'} ({e})")
+        spec = ex.ExperimentSpec.from_dict(d["spec"])
+        if spec.execution == "live":
+            ok = spec.spec_hash() == path.stem
+            print(f"  store {path.stem[:12]} {name} (live): hash ok {ok}; "
+                  f"rerun in phase 25")
             if not ok:
-                problems.append(f"{name}: {e}")
+                problems.append(f"{name} (live): spec hash "
+                                f"{spec.spec_hash()[:12]} is not its address")
             continue
         if spec.spec_hash() != path.stem:
             problems.append(f"{name}: spec hash {spec.spec_hash()[:12]} is "
@@ -3939,6 +3984,261 @@ def serving_phase(torch, dev) -> None:
         fail("serving: " + "; ".join(problems[:12]))
 
 
+def live_band(got, want, got_trials: int, want_trials: int) -> tuple:
+    """(|gap|, combined SE, within the band) of two reports' t_comp; the
+    quarter is of ``want``'s t_comp."""
+    se = float(np.hypot(got.t_comp_std / np.sqrt(got_trials),
+                        want.t_comp_std / np.sqrt(want_trials)))
+    gap = abs(got.t_comp - want.t_comp)
+    return gap, se, gap < max(LIVE_BAND_SE * se,
+                              LIVE_BAND_FRAC * want.t_comp)
+
+
+def live_report_line(label: str, rep) -> str:
+    cp = rep.extra["control_plane"]
+    counters = cp["timeline"]["counters"]
+    dev_ms = cp["payload_device_ms"]
+    return (f"{label}: T_comp {rep.t_comp:.4f} +- {rep.t_comp_std:.4f}, "
+            f"I {rep.iterations:.2f}, N_comm {rep.n_comm:.1f}; episode "
+            f"wall {cp['episode_wall_s']:.4f} s, coordination_frac "
+            f"{cp['coordination_frac']:.4f}; last episode's messages sent "
+            f"{counters.get('messages_sent', 0)}, received "
+            f"{counters.get('messages_received', 0)}, retries "
+            f"{counters.get('rpc_retries', 0)}; lost {cp['workers_lost']}; "
+            f"payload device "
+            + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
+            + " an episode")
+
+
+def live_ledger_problems(tag: str, rep, N: int, exchange: bool) -> list:
+    """A report's ledger: conserved, and on the exchange path every unit
+    of every episode completed exactly once."""
+    led = rep.extra["control_plane"]["ledger"]
+    out = []
+    if led["units_dispatched"] != (led["units_completed"]
+                                   + led["units_reassigned"]):
+        out.append(f"{tag}: ledger not conserved {led}")
+    if exchange and led["units_completed"] != rep.trials * N:
+        out.append(f"{tag}: {led['units_completed']} units completed, not "
+                   f"{rep.trials} x {N}")
+    return out
+
+
+async def stuck_tcp_stop(get_transport) -> float:
+    """Seconds a ``tcp`` listener takes to stop while one handler blocks
+    for ever and another has returned, neither closing its comm."""
+    import asyncio
+
+    async def stuck(comm):
+        await comm.recv()
+        await asyncio.sleep(3600)
+
+    async def leaves(comm):
+        await comm.recv()
+
+    tr = get_transport("tcp")
+    took = 0.0
+    for handler in (stuck, leaves):
+        listener = tr.listen(handler)
+        await listener.start()
+        client = await tr.connect(listener.address)
+        await client.send({"go": 1})
+        await asyncio.sleep(0.05)
+        t0 = time.perf_counter()
+        await asyncio.wait_for(listener.stop(), 10 * LIVE_STOP_S)
+        took = max(took, time.perf_counter() - t0)
+        await client.close()
+    return took
+
+
+def live_phase(torch, dev) -> None:
+    """Phase 25: the live control plane with its payload on the card --
+    (a) the stored demo-live entry rerun, (b) the CLI's live demos, (c)
+    the paper's scale over inproc, (d) over tcp and flaky tcp, (e) the
+    payload alone under the sync debug mode, (f) the tcp stop repair."""
+    import asyncio
+    import tempfile
+
+    import repro_torch.experiments as ex
+    from repro_torch.control import (LiveConfig, MatmulPayload,
+                                     get_transport, run_live)
+    from repro_torch.control.coordinator import live_supported
+    from repro_torch.core import HetSpec, get_scheme
+    problems = []
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"live control plane: {smi.stdout.strip()}; numpy "
+          f"{np.__version__}, torch {torch.__version__}, python "
+          f"{sys.version.split()[0]}")
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) in the background while (a) runs
+        clis = {demo: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.experiments", "--demo", demo,
+             "--store", str(Path(tmp) / demo), "--check-cache"], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for demo in ("live", "live-fault")}
+
+        # (a) the stored entry, rerun on the card
+        d = json.loads((ROOT / "results" / "store"
+                        / f"{LIVE_ENTRY}.json").read_text())
+        spec = ex.ExperimentSpec.from_dict(d["spec"])
+        if spec.spec_hash() != LIVE_ENTRY:
+            problems.append(f"demo-live hashes to {spec.spec_hash()[:12]}")
+        want = ex.ExperimentResult.from_dict(d)
+        t0 = time.perf_counter()
+        result = ex.run_experiment(spec, store=ex.ResultsStore(
+            Path(tmp) / "rerun"), device=dev)
+        wall = time.perf_counter() - t0
+        print(f"  (a) store {LIVE_ENTRY[:12]} demo-live (K {spec.grid.K}, N "
+              f"{spec.N}, {spec.trials} trials, {spec.live.transport}) on "
+              f"{result.env['device']}: {wall:.3f} s, cache hit "
+              f"{result.cache_hit}, at its address "
+              f"{result.spec_hash == LIVE_ENTRY}")
+        if result.cache_hit or result.spec_hash != LIVE_ENTRY:
+            problems.append("demo-live: not a fresh run at its address")
+        for s in spec.schemes:
+            key = s.report_key
+            [rep], [ref] = result.report(key), want.report(key)
+            gap, se, ok = live_band(rep, ref, rep.trials, ref.trials)
+            print(f"    {live_report_line(key, rep)}; stored "
+                  f"{ref.t_comp:.4f}, gap {gap:.4f} = {gap / se:.3f} SE, "
+                  f"{gap / ref.t_comp:.4f} of it ({'ok' if ok else 'FAIL'})")
+            if not ok:
+                problems.append(f"demo-live {key}: t_comp {rep.t_comp:.4f} "
+                                f"beyond the band of the stored "
+                                f"{ref.t_comp:.4f}")
+            if key in LIVE_STORED_N_COMM and (
+                    rep.n_comm != LIVE_STORED_N_COMM[key]
+                    or ref.n_comm != LIVE_STORED_N_COMM[key]):
+                problems.append(f"demo-live {key}: n_comm {rep.n_comm}")
+            if key == "fixed" and (rep.iterations != 1 or rep.n_comm != 0):
+                problems.append(f"demo-live fixed: {rep.iterations} "
+                                f"iterations, n_comm {rep.n_comm}")
+            exchange = live_supported(get_scheme(
+                s.scheme, **s.params_dict)) == "exchange"
+            problems += live_ledger_problems(f"demo-live {key}", rep,
+                                             spec.N, exchange)
+            if rep.extra["control_plane"]["payload_backend"] != "torch":
+                problems.append(f"demo-live {key}: not the torch payload")
+        print("    every payload verified against a float64 product on the "
+              "card (run_live raises otherwise)")
+
+        for demo, proc in clis.items():
+            out, err = proc.communicate(timeout=600)
+            lines = out.strip().splitlines()
+            ok = (proc.returncode == 0 and "computed in" in out
+                  and "check-cache: OK" in out
+                  and out.index("computed in") < out.index("check-cache: OK"))
+            print(f"  (b) python -m repro_torch.experiments --demo {demo} "
+                  f"--check-cache: exit {proc.returncode}; "
+                  + (" | ".join(line.strip() for line in lines[3:-1])
+                     if ok else err.strip()[-400:]))
+            if not ok:
+                problems.append(f"--demo {demo} failed")
+                continue
+            if demo == "live-fault":
+                [h] = [p.stem for p in (Path(tmp) / demo).glob("*.json")]
+                got = ex.ResultsStore(Path(tmp) / demo).get(h)
+                lost = [r.extra["control_plane"]["workers_lost"]
+                        for r in got.report("work_exchange")]
+                print(f"      workers_lost {lost}")
+                if lost != [[0]]:
+                    problems.append(f"live-fault lost {lost}, not [[0]]")
+
+    # (c) the paper's scale over inproc
+    het = HetSpec.uniform_random(K_PAPER, LIVE_MU, LIVE_MU ** 2 / 6,
+                                 np.random.default_rng(0))
+    mc = {}
+    for name in LIVE_FULL_SCHEMES:
+        t0 = time.perf_counter()
+        mc[name] = get_scheme(name).mc(het, N_PAPER, LIVE_MC_TRIALS,
+                                       np.random.default_rng(0),
+                                       backend="numpy", device=dev)
+        mc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = run_live(name, {}, het, N_PAPER, LiveConfig(), LIVE_EPISODES,
+                       seed=LIVE_SEED, device=dev)
+        wall = time.perf_counter() - t0
+        gap, se, ok = live_band(rep, mc[name], LIVE_EPISODES, LIVE_MC_TRIALS)
+        label = f"{name} (K {K_PAPER}, N {N_PAPER}, inproc)"
+        print(f"  (c) {live_report_line(label, rep)}; "
+              f"numpy MC {mc[name].t_comp:.4f} +- {mc[name].t_comp_std:.4f} "
+              f"({LIVE_MC_TRIALS} trials, {mc_s:.3f} s), gap {gap:.4f} = "
+              f"{gap / se:.3f} SE, {gap / mc[name].t_comp:.4f} of it "
+              f"({'ok' if ok else 'FAIL'}); {LIVE_EPISODES} episodes in "
+              f"{wall:.3f} s")
+        if not ok:
+            problems.append(f"full-size {name}: t_comp {rep.t_comp:.4f} "
+                            f"beyond the band of MC {mc[name].t_comp:.4f}")
+        problems += live_ledger_problems(f"full-size {name}", rep, N_PAPER,
+                                         True)
+
+    # (d) over tcp and flaky tcp
+    for label, cfg in (("tcp", LiveConfig(transport="tcp")),
+                       ("flaky tcp", LiveConfig(
+                           transport="flaky",
+                           transport_params=LIVE_FLAKY))):
+        t0 = time.perf_counter()
+        rep = run_live("work_exchange", {}, het, N_PAPER, cfg, 1,
+                       seed=LIVE_SEED, device=dev)
+        wall = time.perf_counter() - t0
+        gap, se, ok = live_band(rep, mc["work_exchange"], 1, LIVE_MC_TRIALS)
+        print(f"  (d) {live_report_line(f'work_exchange over {label}', rep)}"
+              f"; against MC {gap / mc['work_exchange'].t_comp:.4f} of it "
+              f"(printed, not held); 1 episode in {wall:.3f} s")
+        problems += live_ledger_problems(f"{label} work_exchange", rep,
+                                         N_PAPER, True)
+        retries = rep.extra["control_plane"]["timeline"]["counters"].get(
+            "rpc_retries", 0)
+        if label == "flaky tcp" and retries == 0:
+            problems.append("flaky tcp: no rpc retried")
+
+    # (e) the payload alone, no call allowed to wait for the device
+    t0 = time.perf_counter()
+    payload = MatmulPayload(N_PAPER, 4, 64, seed=LIVE_SEED, device=dev)
+    draw_s = time.perf_counter() - t0
+    per = N_PAPER // K_PAPER
+    payload.warmup(per)
+    rng = np.random.default_rng(5)
+    queues = [rng.integers(0, N_PAPER, per).tolist()
+              for _ in range(LIVE_PAYLOAD_CALLS)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for q in queues:
+            payload.compute(q)
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dev_ms = payload.device_ms()
+    verified = payload.verify()
+    calls = LIVE_PAYLOAD_CALLS
+    print(f"  (e) payload alone: A {tuple(payload.A.shape)} float32 drawn "
+          f"and copied in {draw_s:.3f} s; {calls} calls of {per} units "
+          f"under sync debug mode 'error': host "
+          f"{host_s * 1e3 / calls:.4f} ms a call, device "
+          + ("not measured" if dev_ms is None
+             else f"{dev_ms / calls:.4f} ms a call")
+          + f", verified {verified}")
+    if not verified:
+        problems.append("the payload alone did not verify")
+    del payload
+
+    # (f) the tcp stop repair
+    took = asyncio.run(stuck_tcp_stop(get_transport))
+    print(f"  (f) tcp listener with handlers that never close their comms: "
+          f"stop in {took:.6f} s")
+    if took >= LIVE_STOP_S:
+        problems.append(f"tcp stop took {took:.3f} s")
+    print(f"  phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        fail("live control plane: " + "; ".join(problems[:12]))
+
+
 def main() -> None:
     import torch
 
@@ -4179,6 +4479,7 @@ def main() -> None:
     het_kernels = het_phases(torch, dev)
     experiment_kernels = experiment_phase(torch, dev)
     serving_phase(torch, dev)
+    live_phase(torch, dev)
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",

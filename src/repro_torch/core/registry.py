@@ -54,6 +54,10 @@ class Registry(Generic[T], Mapping[str, T]):
 
     # -- lookup -------------------------------------------------------------
 
+    def canonical(self, name: str) -> str:
+        """Resolve an alias to its canonical name (identity otherwise)."""
+        return self._aliases.get(name, name)
+
     def get(self, name: str) -> T:  # type: ignore[override]
         """The registered object for ``name`` (alias-aware), or KeyError
         listing every registered key."""
@@ -74,12 +78,24 @@ class Registry(Generic[T], Mapping[str, T]):
             names += sorted(self._aliases)
         return names
 
+    def aliases(self) -> Dict[str, str]:
+        return dict(self._aliases)
+
     # -- Mapping view over canonical entries --------------------------------
 
     def __getitem__(self, name: str) -> T:
         if name not in self._entries:
             raise KeyError(self.unknown_message(name))
         return self._entries[name]
+
+    def __delitem__(self, name: str) -> None:
+        """Unregister a canonical entry (tests use this for cleanup);
+        aliases pointing at it are removed with it."""
+        if name not in self._entries:
+            raise KeyError(self.unknown_message(name))
+        del self._entries[name]
+        for a in [a for a, c in self._aliases.items() if c == name]:
+            del self._aliases[a]
 
     def __iter__(self) -> Iterator[str]:
         return iter(self._entries)

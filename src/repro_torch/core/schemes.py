@@ -198,6 +198,10 @@ class Scheme:
     name: str = "abstract"
     redundant: bool = False
     plan_wait_all: bool = True    # static schemes wait for the max
+    # redundant schemes whose live execution (repro_torch.control)
+    # completes at the size-cover instant: finished workers' assigned
+    # sizes >= N
+    live_cover: bool = False
     # schemes whose mc/mc_grid accept a per-exchange-round rate_schedule
     supports_rate_schedule: bool = False
 
@@ -543,6 +547,8 @@ class MDSScheme(Scheme):
     """
 
     redundant = True    # K * ceil(N/L) coded units are shipped for N useful
+    live_cover = True   # live: complete at size-cover (== L finishers
+                        # whenever ceil(N/m) == L)
 
     def __init__(self, L: Optional[int] = None, opt_trials: int = 64):
         self.L = L
@@ -1022,6 +1028,7 @@ class HetMDSScheme(Scheme):
     """
 
     redundant = True
+    live_cover = True   # cover >= N is this scheme's own completion rule
 
     def __init__(self, redundancy: float = 1.25):
         if redundancy < 1.0:
@@ -1265,6 +1272,8 @@ class HedgedScheme(Scheme):
     """
 
     redundant = True    # the straggler's shard ships twice
+    live_cover = True   # cover >= N == the replica race (all others plus
+                        # whichever of straggler/spare finishes first)
 
     def _layout(self, het: HetSpec, N: int):
         """Per-worker primary loads + (spare, straggler) worker ids."""

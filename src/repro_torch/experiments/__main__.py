@@ -20,6 +20,12 @@
     # prove the cache: second run must be a content-address hit
     python -m repro_torch.experiments --demo quick --check-cache
 
+    # the schemes EXECUTED through the live control plane (asyncio
+    # coordinator, workers, transports; the matmul payload on the device)
+    python -m repro_torch.experiments --demo live
+    python -m repro_torch.experiments --demo live-fault --device cpu
+    python -m repro_torch.experiments --demo quick --live
+
     # query the store: one line per entry (hash, name, family, schemes,
     # backend, devices, wall)
     python -m repro_torch.experiments ls
@@ -28,10 +34,7 @@
     # standard errors (hash prefixes resolve when unambiguous)
     python -m repro_torch.experiments compare 825d75a6 07eaead1
 
-The ``live`` and ``live-fault`` demos need the live control plane, not
-ported yet (ROADMAP.md, Queue 1 item 10): they exit 1 with that message.
-
-Exit codes: 0 ok, 1 bad spec / axis not ported / failed --check-cache /
+Exit codes: 0 ok, 1 bad spec / path not ported / failed --check-cache /
 unknown hash.
 """
 from __future__ import annotations
@@ -42,19 +45,18 @@ from pathlib import Path
 
 import numpy as np
 
+from ..control import LiveConfig
 from ..device import DEFAULT_DEVICE
 from ..scenarios import DriftingScenario, ExplicitScenario, HCMMSweepScenario
 from ..scenarios.traces import DEFAULT_CORPUS, TraceCorpusScenario
 from ..serving import ServingConfig
 
 from .engine import ExperimentResult, run_experiment
-from .spec import LATER_AXES, ExperimentSpec, ScenarioGrid, scheme_spec
+from .spec import ExperimentSpec, ScenarioGrid, scheme_spec
 from .store import ResultsStore, default_store
 
 DEMOS = ("quick", "drifting", "trace", "hcmm", "serving", "serving-trace",
          "live", "live-fault", "train")
-# demos whose spec needs an axis not ported yet
-LATER_DEMOS = ("live", "live-fault")
 
 
 def demo_spec(kind: str) -> ExperimentSpec:
@@ -121,8 +123,32 @@ def demo_spec(kind: str) -> ExperimentSpec:
             serving=ServingConfig(loads=(0.7,), arrival="trace",
                                   arrival_params={"epochs": 12},
                                   slots=600, backend="torch"))
-    if kind in LATER_DEMOS:
-        raise NotImplementedError(f"demo {kind!r}: {LATER_AXES}")
+    if kind == "live":
+        # the same schemes EXECUTED through the asyncio control plane:
+        # real transport messages, real matmul shards, measured T_comp
+        # (mds pins L so ceil(N/m) == L and the live size-cover rule
+        # equals the L-th order statistic)
+        return ExperimentSpec(
+            name="demo-live",
+            grid=ScenarioGrid(K=4, points=[(4.0, 4.0 ** 2 / 6, 4)]),
+            schemes=(scheme_spec("work_exchange"),
+                     scheme_spec("work_exchange_unknown"),
+                     scheme_spec("fixed"),
+                     scheme_spec("mds", L=3),
+                     scheme_spec("hedged")),
+            N=2_000, trials=4, seed=1234,
+            execution="live", live=LiveConfig(target_wall_s=0.5))
+    if kind == "live-fault":
+        # kill worker 0 a quarter of the way in: the episode must
+        # complete degraded (leftovers reassigned), not hang
+        return ExperimentSpec(
+            name="demo-live-fault",
+            grid=ScenarioGrid(K=4, points=[(4.0, 4.0 ** 2 / 6, 4)]),
+            schemes=(scheme_spec("work_exchange"),),
+            N=2_000, trials=2, seed=1234,
+            execution="live",
+            live=LiveConfig(target_wall_s=0.5, timeout_s=0.1, retries=1,
+                            kill_worker=0, kill_after_frac=0.25))
     if kind == "train":
         # every scheme as an epoch-assignment policy over real
         # gradients: one shared trajectory (bit-identical loss curves),
@@ -207,6 +233,17 @@ def show(result: ExperimentResult, store: ResultsStore) -> None:
                       f"wait={tr['straggler_wait_frac']:.1%}"
                       f"{tgt}{nom}")
                 continue
+            cp = rep.extra.get("control_plane")
+            if cp:
+                lost = (f" lost={cp['workers_lost']}"
+                        if cp["workers_lost"] else "")
+                print(f"  {key:24s} point {g}: T_comp={rep.t_comp:10.4f} "
+                      f"+- {rep.t_comp_std:8.4f}  I={rep.iterations:6.2f}  "
+                      f"N_comm={rep.n_comm:10.1f}  "
+                      f"live[{cp['transport']}] "
+                      f"wall={cp['episode_wall_s']:.3f}s "
+                      f"coord={cp['coordination_frac']:.1%}{lost}")
+                continue
             extra = "".join(f" {k}={v:g}" for k, v in rep.extra.items()
                             if isinstance(v, (int, float)))
             print(f"  {key:24s} point {g}: T_comp={rep.t_comp:10.4f} "
@@ -255,11 +292,7 @@ def cmd_ls(argv) -> int:
           f"{'schemes':28s} {'backend':7s} {'dev':>3s} {'N':>9s} "
           f"{'trials':>6s} {'wall_s':>8s}")
     for h in entries:
-        try:
-            result = store.get(h)
-        except NotImplementedError:
-            print(f"{h[:16]}  (a live entry: not ported yet)")
-            continue
+        result = store.get(h)
         if result is None:
             print(f"{h[:16]}  (unreadable or mismatched entry)")
             continue
@@ -396,6 +429,10 @@ def _run(argv) -> int:
     ap.add_argument("--backend", help="override the sampler backend")
     ap.add_argument("--trials", type=int, help="override the trial budget")
     ap.add_argument("--n", type=int, help="override N (work units)")
+    ap.add_argument("--live", action="store_true",
+                    help="execute the spec through the live control "
+                         "plane (execution='live' with default "
+                         "LiveConfig) instead of Monte Carlo")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="torch device to run on (default cuda; cpu runs "
                          "the plain PyTorch versions of the kernels)")
@@ -423,6 +460,11 @@ def _run(argv) -> int:
         overrides["trials"] = args.trials
     if args.n:
         overrides["N"] = args.n
+    if args.live:
+        # same spec, live execution (post-init fills the default
+        # LiveConfig); a different spec_hash, so MC and live runs of
+        # one study sit side by side in the store for `compare`
+        overrides["execution"] = "live"
     if overrides:
         specs = [spec.replace(**overrides) for spec in specs]
 

@@ -13,7 +13,9 @@ execution argument, not a spec field, so it never enters the hash: the
 ``numpy`` engine runs on the host whatever the device.  A serving spec
 runs every scheme task as a dispatch policy through the queueing engine
 its plan resolved (``repro_torch.serving``): ``numpy`` on the host, bit
-for bit the reference's, or ``torch`` on ``device``.
+for bit the reference's, or ``torch`` on ``device``.  A live spec runs
+every scheme task through the asyncio control plane
+(``repro_torch.control``), its workers' matmul payload on ``device``.
 
 Seed discipline: each task draws from its own fresh
 ``default_rng(task.seed)``, so per-task numbers are independent of task
@@ -91,6 +93,22 @@ def _environment(device: torch.device) -> Dict[str, Any]:
     return env
 
 
+def _execute_live(plan: Plan, device) -> Dict[str, List[MCReport]]:
+    """Live specs: every scheme task executes through the asyncio control
+    plane (``repro_torch.control``) -- real transport round-trips, real
+    matmul shards on ``device``, ``trials`` episodes per grid point,
+    measured ``T_comp`` plus the telemetry timeline in each report's
+    ``extra["control_plane"]``."""
+    from ..control import run_live_grid
+    reports: Dict[str, List[MCReport]] = {}
+    for task in plan.tasks:
+        reports[task.key] = run_live_grid(
+            task.scheme, task.params_dict, plan.het_specs,
+            plan.spec.N, plan.spec.live, plan.spec.trials, task.seed,
+            rate_schedules=plan.rate_schedules, device=device)
+    return reports
+
+
 def _execute_training(plan: Plan, device) -> Dict[str, List[MCReport]]:
     """Training specs: every scheme task becomes an epoch-assignment
     policy over real gradients (``repro_torch.hettrain``) -- one shared
@@ -136,7 +154,9 @@ def execute_plan(plan: Plan, device=DEFAULT_DEVICE) -> ExperimentResult:
     dev = resolve_device(device)
     spec = plan.spec
     t0 = time.perf_counter()
-    if spec.serving is not None:
+    if spec.execution == "live":
+        reports = _execute_live(plan, dev)
+    elif spec.serving is not None:
         reports = _execute_serving(plan, dev)
     elif spec.training is not None:
         reports = _execute_training(plan, dev)

@@ -11,9 +11,12 @@ execution ``Plan``:
   lands in the stored spec;
 * the device count is normalized to a concrete int: 1, since no backend
   of the port has a multi-device executor yet (``SHARDED_BACKENDS`` is
-  empty), as the reference pins every backend without one;
+  empty), as the reference pins every backend without one; a live spec
+  is one asyncio event loop and pins 1 whatever the backend, and its
+  transport is built here, so a bad one fails at compile time;
 * every scheme task is validated by instantiating it (unknown names and
-  bad params fail at compile time, not mid-run) and gets its concrete
+  bad params fail at compile time, not mid-run; on a live spec, so does
+  a scheme with no live path, ``live_supported``) and gets its concrete
   rng seed;
 * the scenario grid is materialized into ``HetSpec`` rows.
 
@@ -28,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..control.coordinator import live_supported
 from ..core.samplers import resolve_backend
 from ..core.schemes import get_scheme
 from ..core.types import HetSpec
@@ -95,9 +99,16 @@ def compile_plan(spec: ExperimentSpec) -> Plan:
         if sname != spec.serving.backend:
             spec = spec.replace(
                 serving=dataclasses.replace(spec.serving, backend=sname))
+    if spec.execution == "live":
+        # live episodes are one asyncio event loop on one device, and
+        # the transport must exist at compile time
+        devices = 1
+        spec.live.build_transport()
     tasks = []
     for s in spec.schemes:
-        get_scheme(s.scheme, **s.params_dict)  # fail fast
+        scheme = get_scheme(s.scheme, **s.params_dict)  # fail fast
+        if spec.execution == "live":
+            live_supported(scheme)      # unsupported schemes fail here
         tasks.append(Task(key=s.report_key, scheme=s.scheme,
                           params=s.params,
                           seed=int(s.seed if s.seed is not None

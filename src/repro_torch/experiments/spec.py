@@ -27,11 +27,10 @@ serializes and hashes exactly as the reference's, so the port reads the
 reference's store entries at their addresses.
 
 ``serving=`` attaches the streaming-arrival axis
-(``repro_torch.serving.ServingConfig``).  The reference's live
-control-plane axis (``execution="live"``, ``live=``) is not ported yet:
-a spec that sets it raises ``NotImplementedError`` naming its ROADMAP
-item, at construction and in ``from_dict``.  At their defaults the keys
-of both axes are omitted from serialization, as in the reference.
+(``repro_torch.serving.ServingConfig``), ``execution="live"`` with
+``live=`` the live control plane (``repro_torch.control.LiveConfig``).
+At their defaults the keys of both axes are omitted from serialization,
+as in the reference.
 
 ``repro_torch.experiments.plan`` compiles a spec into an execution
 ``Plan``; ``repro_torch.experiments.engine`` runs the plan.
@@ -43,6 +42,7 @@ import hashlib
 import json
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
+from ..control.config import LiveConfig
 from ..core.types import HetSpec
 from ..hettrain.config import TrainConfig
 from ..serving.config import ServingConfig
@@ -50,15 +50,6 @@ from ..scenarios import (ExplicitScenario, ScenarioFamily, ScenarioPoint,
                          UniformRandomScenario, scenario_from_dict)
 
 SPEC_VERSION = 1
-
-# the reference's axis the port has not taken yet, by ROADMAP item
-LATER_AXES = ("the live control plane (execution='live', live=) is not "
-              "ported yet (ROADMAP.md, Queue 1 item 10)")
-
-
-def _refuse_later_axes(execution, live) -> None:
-    if execution == "live" or live is not None:
-        raise NotImplementedError(LATER_AXES)
 
 
 class ScenarioGrid:
@@ -182,8 +173,16 @@ class ExperimentSpec:
     latency percentiles in ``extra``.  ``None`` (the default) serializes
     with the key omitted.
 
-    ``execution="live"`` and ``live`` raise ``NotImplementedError``
-    (ROADMAP.md, Queue 1 item 10).
+    ``execution="live"`` routes every scheme task through the asyncio
+    control plane (``repro_torch.control``) instead of Monte Carlo: real
+    transport messages, real matmul shards on ``run_experiment``'s
+    device, ``trials`` live episodes per grid point, measured ``T_comp``
+    in the same MCReport shape (plus ``extra["control_plane"]``).
+    ``live`` carries the transport/pacing/fault knobs (``LiveConfig``;
+    defaults apply when ``execution="live"`` with ``live=None``).  Both
+    keys are omitted from serialization at their defaults -- "mc" and
+    ``None`` -- so every pre-live spec hash and store address is
+    unchanged.
     """
 
     name: str
@@ -196,7 +195,7 @@ class ExperimentSpec:
     devices: Union[int, str] = 1
     serving: Optional[ServingConfig] = None
     execution: str = "mc"
-    live: Optional[Any] = None
+    live: Optional[LiveConfig] = None
     panel: str = "per_scheme"
     training: Optional[TrainConfig] = None
     version: int = SPEC_VERSION
@@ -213,20 +212,32 @@ class ExperimentSpec:
         if self.execution not in ("mc", "live"):
             raise ValueError(f"execution must be 'mc' or 'live'; "
                              f"got {self.execution!r}")
-        _refuse_later_axes(self.execution, self.live)
+        if self.live is not None and not isinstance(self.live, LiveConfig):
+            raise TypeError(f"live must be a LiveConfig or None; "
+                            f"got {type(self.live).__name__}")
+        if self.execution == "live":
+            if self.serving is not None:
+                raise ValueError("execution='live' and serving= are "
+                                 "mutually exclusive axes")
+            if self.live is None:
+                object.__setattr__(self, "live", LiveConfig())
+        elif self.live is not None:
+            raise ValueError("live= requires execution='live'")
         if self.panel not in ("per_scheme", "fused"):
             raise ValueError(f"panel must be 'per_scheme' or 'fused'; "
                              f"got {self.panel!r}")
-        if self.panel == "fused" and self.serving is not None:
+        if self.panel == "fused" and (self.serving is not None
+                                      or self.execution != "mc"):
             raise ValueError("panel='fused' applies to batch MC only; "
-                             "drop serving=")
+                             "drop serving= / execution='live'")
         if self.training is not None:
             if not isinstance(self.training, TrainConfig):
                 raise TypeError(f"training must be a TrainConfig or None; "
                                 f"got {type(self.training).__name__}")
-            if self.serving is not None:
-                raise ValueError("training= and serving= are mutually "
-                                 "exclusive axes")
+            if self.serving is not None or self.execution != "mc":
+                raise ValueError("training= and serving= / "
+                                 "execution='live' are mutually exclusive "
+                                 "axes")
             if self.panel != "per_scheme":
                 raise ValueError("training= runs per-scheme; drop "
                                  "panel='fused'")
@@ -261,6 +272,10 @@ class ExperimentSpec:
         if self.serving is not None:
             # key omitted when absent: pre-serving hashes stay valid
             d["serving"] = self.serving.to_dict()
+        if self.execution != "mc":
+            # both live keys omitted at defaults: pre-live hashes survive
+            d["execution"] = self.execution
+            d["live"] = self.live.to_dict()
         if self.panel != "per_scheme":
             # key omitted at the default: pre-panel hashes survive
             d["panel"] = self.panel
@@ -271,8 +286,8 @@ class ExperimentSpec:
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "ExperimentSpec":
-        _refuse_later_axes(d.get("execution", "mc"), d.get("live"))
         serving = d.get("serving")
+        live = d.get("live")
         training = d.get("training")
         return cls(name=d["name"], grid=ScenarioGrid.from_dict(d["grid"]),
                    schemes=tuple(SchemeSpec.from_dict(s)
@@ -282,6 +297,9 @@ class ExperimentSpec:
                    devices=d.get("devices", 1),
                    serving=(None if serving is None
                             else ServingConfig.from_dict(serving)),
+                   execution=d.get("execution", "mc"),
+                   live=(None if live is None
+                         else LiveConfig.from_dict(live)),
                    panel=d.get("panel", "per_scheme"),
                    training=(None if training is None
                              else TrainConfig.from_dict(training)),

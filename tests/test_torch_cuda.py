@@ -727,3 +727,32 @@ def test_serving_geometric_sizes_and_the_layer_on_the_card(cuda_device):
     rows = [r for key in result.keys() for r in result.report(key)]
     assert len(rows) == 4 and result.env["device"].startswith("cuda")
     assert all(r.extra["serving_backend"] == "torch" for r in rows)
+
+
+@pytest.mark.gpu
+def test_live_payload_and_episode_on_the_card(cuda_device):
+    """The live control plane's matmul payload on the card draws the CPU's
+    bits and computes its ``y`` within 1e-5; a short ``inproc`` episode
+    with the payload on the card completes, conserves its ledger and
+    reports the payload's device milliseconds."""
+    from repro_torch.control import LiveConfig, MatmulPayload, run_live
+    from repro_torch.core import HetSpec
+    cpu = MatmulPayload(500, 4, 64, seed=3, device="cpu")
+    card = MatmulPayload(500, 4, 64, seed=3, device=cuda_device)
+    assert torch.equal(card.A.cpu(), cpu.A) and torch.equal(card.x.cpu(),
+                                                            cpu.x)
+    for ids in ([7], list(range(0, 500, 3)), list(range(500))):
+        assert card.compute(ids) == cpu.compute(ids)
+    torch.testing.assert_close(card.y.cpu(), cpu.y, rtol=1e-5, atol=1e-5)
+    assert card.verify() and card.device_ms() > 0
+    het = HetSpec.uniform_random(4, 4.0, 4.0 ** 2 / 6,
+                                 np.random.default_rng(2))
+    rep = run_live("work_exchange", {}, het, 2000,
+                   LiveConfig(target_wall_s=0.2), trials=2, seed=1,
+                   device=cuda_device)
+    cp = rep.extra["control_plane"]
+    led = cp["ledger"]
+    assert led["units_dispatched"] == (led["units_completed"]
+                                       + led["units_reassigned"])
+    assert led["units_completed"] == 2 * 2000
+    assert cp["payload_backend"] == "torch" and cp["payload_device_ms"] > 0

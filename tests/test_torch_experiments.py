@@ -3,9 +3,8 @@ engine, store and CLI) held against the JAX package's and against the
 results store it wrote, on the CPU.
 
 * **The store as oracle.**  Every committed ``results/store`` entry's
-  spec, read by the port, hashes to its file name -- or, for the live
-  entry, raises ``NotImplementedError`` naming ROADMAP.md's Queue 1
-  item 10.  Each stored batch Monte-Carlo entry (fig5,
+  spec, read by the port, hashes to its file name, the live entry's
+  too.  Each stored batch Monte-Carlo entry (fig5,
   fig6, fig7, their ``-quick`` cuts and the ``mc`` demo-live; all on the
   ``numpy`` backend) is rerun through ``run_experiment(...,
   device="cpu")`` and every report field must equal the stored one
@@ -34,9 +33,11 @@ results store it wrote, on the CPU.
 * ``HetTrainer(trace_corpus=...)`` gives the reference's scheduling
   fields exactly (the weights carried over as in
   ``tests/test_torch_hetsched.py``; the loss at 1e-4).
-* The CLI's ``main`` runs ``--demo quick --check-cache`` and refuses the
-  live demo with exit code 1.  (The serving entries and demos are
-  ``tests/test_torch_serving.py``'s.)
+* The CLI's ``main`` runs ``--demo quick --check-cache`` and ``--demo
+  live-fault --check-cache`` on the CPU, and ``ls`` lists every stored
+  entry.  (The serving entries and demos are
+  ``tests/test_torch_serving.py``'s; the live control plane is
+  ``tests/test_torch_control.py``'s.)
 """
 import dataclasses
 import json
@@ -84,13 +85,13 @@ def entry(path):
     return json.loads(path.read_text())
 
 
-def later_axis(spec_dict):
+def live_axis(spec_dict):
     return ("live" in spec_dict
             or spec_dict.get("execution", "mc") != "mc")
 
 
 MC_ENTRIES = [p for p in ENTRIES
-              if not later_axis(entry(p)["spec"])
+              if not live_axis(entry(p)["spec"])
               and "training" not in entry(p)["spec"]
               and "serving" not in entry(p)["spec"]]
 
@@ -105,12 +106,6 @@ def test_the_store_holds_the_entries_this_file_reads():
 @pytest.mark.parametrize("path", ENTRIES, ids=lambda p: p.stem[:12])
 def test_stored_spec_hashes_to_its_address(path):
     spec = entry(path)["spec"]
-    if later_axis(spec):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ExperimentSpec.from_dict(spec)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ResultsStore(STORE).get(path.stem)
-        return
     ours = ExperimentSpec.from_dict(spec)
     assert ours.spec_hash() == path.stem
     assert ours.to_dict() == spec
@@ -376,11 +371,16 @@ def test_cli(tmp_path, capsys):
     assert "computed in" in out and "cache HIT" not in out
     assert cli.main(["ls", "--store", store]) == 0
     assert "demo-quick" in capsys.readouterr().out
-    assert cli.main(["--demo", "live", "--device", "cpu"]) == 1
-    assert "item 10" in capsys.readouterr().err
+    live_store = str(tmp_path / "live")
+    assert cli.main(["--demo", "live-fault", "--device", "cpu", "--store",
+                     live_store, "--check-cache"]) == 0
+    out = capsys.readouterr().out
+    assert out.index("computed in") < out.index("check-cache: OK")
+    assert "live[inproc]" in out and "lost=[0]" in out
     assert cli.main(["ls", "--store", str(STORE)]) == 0
     out = capsys.readouterr().out
-    assert out.count("not ported yet") == 1 and "fig5-quick" in out
+    assert "not ported yet" not in out and "unreadable" not in out
+    assert out.count("demo-live ") == 2 and "fig5-quick" in out
     assert cli.main(["compare", "825d75a6", "07eaead1", "--store",
                      str(STORE)]) == 0
     assert "combined SE" in capsys.readouterr().out

@@ -76,7 +76,7 @@ def test_source_imports_no_jax_and_no_repro():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 40
     for sub in ("core", "distributed", "hettrain", "scenarios",
-                "experiments", "serving"):
+                "experiments", "serving", "control"):
         assert any(p.parent == PKG / sub for p in files), sub
     for path in files:
         for mod in _imported_modules(path):
@@ -185,11 +185,15 @@ def test_experiment_layer_runs_with_jax_and_repro_blocked(tmp_path):
     or ``repro`` fails: the quick demo through the CLI with its cache
     check, the trace demo (a ``trace_corpus`` grid and ``trace_replay``
     on the committed corpus) on the ``cuda`` backend's plain version,
-    and a committed store entry read back and hashed."""
+    a committed store entry read back and hashed, and one short live
+    episode over ``inproc`` (the live control plane, its payload on the
+    CPU)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.core import HetSpec\n"
         "from repro_torch.experiments import ResultsStore, run_experiment\n"
         "from repro_torch.experiments.__main__ import demo_spec, main\n"
         "from repro_torch.scenarios import list_families, load_corpus\n"
@@ -204,6 +208,12 @@ def test_experiment_layer_runs_with_jax_and_repro_blocked(tmp_path):
         f"store = ResultsStore({str(PKG.parents[1] / 'results' / 'store')!r})\n"
         "h = '07eaead10b06f4862dc583bb9fb4342f8eaee8c7e4d074b5d61eb94bc527fbb7'\n"
         "assert store.get(h).spec.spec_hash() == h\n"
+        "from repro_torch.control import LiveConfig, run_live\n"
+        "lv = run_live('work_exchange', {}, HetSpec.uniform_random(3, 4.0, "
+        "1.0, np.random.default_rng(0)), 300, LiveConfig(target_wall_s="
+        "0.1), 1, device='cpu')\n"
+        "assert lv.extra['control_plane']['ledger']['units_completed'] == "
+        "300\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
         "for m, v in sys.modules.items() if v is not None)\n"
         "print('ok', r.report('work_exchange')[0].t_comp)\n")

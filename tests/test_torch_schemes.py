@@ -171,14 +171,16 @@ def test_plan_matches_reference(name):
 
 
 def test_later_slices_raise_not_implemented():
-    """What the port has not taken yet raises and names its ROADMAP item:
-    the live axis of an experiment spec (Queue 1 item 10); the reference's
-    ``jax`` backend and the ``torch`` backend that takes its role (item 5)
-    are not registered, so naming either raises the registry's
-    ``KeyError`` listing what is.  The three scenario schemes,
-    ``HetTrainer``'s trace corpora and the serving axis no longer raise:
-    a serving spec reads back from its dict, and a dict in place of a
-    ``ServingConfig`` is a ``TypeError``, as in the reference."""
+    """What the port has not taken yet raises: the reference's ``jax``
+    backend and the ``torch`` backend that takes its role (ROADMAP.md,
+    Queue 1 item 5) are not registered, so naming either raises the
+    registry's ``KeyError`` listing what is.  The three scenario schemes,
+    ``HetTrainer``'s trace corpora, the serving axis and, since the live
+    control plane was ported, the live axis no longer raise: a live spec
+    builds (``execution="live"`` fills in the default ``LiveConfig``) and
+    reads back from its dict, and a dict in place of a ``ServingConfig``
+    or a ``LiveConfig`` is a ``TypeError``, as in the reference."""
+    from repro_torch.control import LiveConfig
     from repro_torch.experiments import ExperimentSpec, ScenarioGrid, \
         scheme_spec
     for name in ("het_mds", "hcmm", "trace_replay", "hedged",
@@ -187,13 +189,16 @@ def test_later_slices_raise_not_implemented():
                                          "hedged")
     base = dict(name="x", grid=ScenarioGrid(K=4, points=[(4.0, 1.0, 1)]),
                 schemes=(scheme_spec("fixed"),), N=100, trials=2)
-    for later in (dict(execution="live"),
-                  dict(live={"transport": "inproc"})):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ExperimentSpec(**base, **later)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ExperimentSpec.from_dict({**ExperimentSpec(**base).to_dict(),
-                                      **later})
+    for live in (None, LiveConfig(transport="tcp", kill_worker=1)):
+        spec = ExperimentSpec(**base, execution="live", live=live)
+        assert spec.live == (live or LiveConfig())
+        back = ExperimentSpec.from_dict({**ExperimentSpec(**base).to_dict(),
+                                         "execution": "live",
+                                         "live": spec.live.to_dict()})
+        assert back == spec and back.spec_hash() == spec.spec_hash()
+    with pytest.raises(TypeError, match="LiveConfig"):
+        ExperimentSpec(**base, execution="live",
+                       live={"transport": "inproc"})
     with pytest.raises(TypeError, match="ServingConfig"):
         ExperimentSpec(**base, serving={"loads": [0.5]})
     served = ExperimentSpec.from_dict({**ExperimentSpec(**base).to_dict(),
