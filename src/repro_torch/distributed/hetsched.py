@@ -121,15 +121,29 @@ class HetTrainer:
 
     # -- one optimizer step --------------------------------------------------
 
-    def step(self, params, opt_state, step_idx: int,
-             failures: Sequence[int] = ()) -> tuple:
+    def _schedule(self, failures: Sequence[int]):
+        """Run the next step's schedule over the virtual clocks: (its
+        unit ids, its ``StepStats``)."""
         unit_ids = list(range(self._next_unit,
                               self._next_unit + self.units_per_step))
         self._next_unit += self.units_per_step
         sched = self._make_scheduler(unit_ids)
-        refetch0 = self.loader.refetched_tokens
         stats = run_virtual_step(sched, self.pool, unit_ids,
                                  failures=failures, loader=self.loader)
+        return unit_ids, stats
+
+    def skip(self, failures: Sequence[int] = ()) -> None:
+        """Advance past one step without computing it: the virtual
+        clocks, the data cursor, the loader's ownership and an online
+        estimator move as that step's ``step`` would move them.  A run
+        resumed from a checkpoint skips the steps before it, so its later
+        steps schedule, and train on, what the uninterrupted run's do."""
+        self._schedule(failures)
+
+    def step(self, params, opt_state, step_idx: int,
+             failures: Sequence[int] = ()) -> tuple:
+        refetch0 = self.loader.refetched_tokens
+        unit_ids, stats = self._schedule(failures)
         n = len(unit_ids)
         if self.compressor is None:
             # canonical path: ONE grad_sum over the full sorted step --

@@ -1,14 +1,26 @@
-"""GQA attention (full, sliding-window and local): the port of
+"""GQA attention (full, sliding-window and local) and MLA: the port of
 ``repro.models.attention`` for serving and training.
 
 Prefill and training context goes through the ``flash_attention`` op:
 the hand-written CUDA kernel on a CUDA tensor, its plain version on a
-CPU tensor (its backward recomputes through the plain version).  Decode
+CPU tensor (its backward recomputes through the plain version).  Heads
+whose dims are no head dim of the kernel (phi3's 96, h2o-danube's 120,
+MLA's) are zero-padded to the next one (``_flash``: exact, zero columns
+add nothing to q.k or to the context); a head wider than the kernel's
+widest raises, naming its dims.  Decode
 attends one query over the cache in plain torch, as the JAX package does
 in XLA.  Full attention keeps a (B, S_max, kvH, hd) cache; sliding-window
 and local attention keep a ring of the window, the key at position p in
 slot p mod s_buf.  The qwen3 family normalises q and k per head before
-RoPE.  MLA comes with a later slice of the port.
+RoPE.
+
+MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2) expands
+per-head keys and values from a shared latent for prefill and training;
+its q and k heads (``qk_nope + qk_rope`` dims) and v heads
+(``v_head_dim``) differ, and both are padded to one kernel head dim.
+Decode caches the latent and the rope key and attends in latent space
+(``wk_b`` folded into q, ``wv_b`` applied after), in plain torch as the
+JAX package does.
 """
 from __future__ import annotations
 
@@ -16,24 +28,52 @@ from typing import Tuple
 
 import torch
 
+import torch.nn.functional as F
+
+from ..kernels.flash_attention.kernel import HEAD_DIMS
 from ..kernels.flash_attention.ops import flash_attention
 from .common import Params, apply_rope, dense_init, rmsnorm
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int, scale: float) -> torch.Tensor:
+    """The flash op on q, k (B, S, H, dq) and v (B, Sk, Hkv, dv), each
+    zero-padded to the least head dim of the kernel that holds
+    max(dq, dv); returns (B, Sq, Hq, dv).  The padding is exact: zero
+    columns add nothing to q.k or to the context's first dv columns."""
+    dq, dv = q.shape[-1], v.shape[-1]
+    d = next((h for h in HEAD_DIMS if h >= max(dq, dv)), None)
+    if d is None:
+        raise ValueError(f"attention heads of q.k dim {dq} and v dim {dv}: "
+                         f"the flash kernel takes head dims {HEAD_DIMS}")
+    q, k, v = (F.pad(t, (0, d - t.shape[-1])) if t.shape[-1] != d
+               else t.contiguous() for t in (q, k, v))
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          scale=scale)
+    return out if d == dv else out[..., :dv]
 
 
 def attention_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, q_offset: int = 0, window: int = 0
                   ) -> torch.Tensor:
-    """Causal (optionally windowed) attention context, q: (B,Sq,Hq,d),
-    k, v: (B,Sk,Hkv,d).  Query i sits at position i + q_offset; the flash
-    op places queries right-aligned, so q_offset must be Sk - Sq (0 for
-    the prefill's Sq == Sk)."""
+    """Causal (optionally windowed) attention context, q: (B,Sq,Hq,dq),
+    k: (B,Sk,Hkv,dq), v: (B,Sk,Hkv,dv).  Query i sits at position
+    i + q_offset; the flash op places queries right-aligned, so q_offset
+    must be Sk - Sq (0 for the prefill's Sq == Sk)."""
     Sq, Sk = q.shape[1], k.shape[1]
     if q_offset != Sk - Sq:
         raise ValueError(f"attention_ctx places queries right-aligned: "
                          f"q_offset must be Sk - Sq = {Sk - Sq}; got "
                          f"{q_offset}")
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True, window=window, scale=scale)
+    return _flash(q, k, v, True, window, scale)
+
+
+def noncausal_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """Attention context with every query seeing every key (an encoder's
+    self-attention, cross-attention), q: (B,Sq,Hq,d), k, v:
+    (B,Sk,Hkv,d), Sq and Sk free."""
+    return _flash(q, k, v, False, 0, scale)
 
 
 def gqa_init(gen: torch.Generator, cfg, dtype, device: torch.device
@@ -150,3 +190,116 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Params, pos: int,
     probs = torch.softmax(scores, dim=-1).to(cv.dtype)
     ctx = torch.einsum("bkgst,btkd->bskgd", probs, cv).reshape(B, 1, H * hd)
     return ctx @ p["wo"], {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg, dtype, device: torch.device
+             ) -> Params:
+    D, H = cfg.d_model, cfg.heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    zeros = dict(dtype=dtype, device=device)
+    return {
+        "wq_a": dense_init(gen, D, qr, dtype, device),
+        "q_norm": torch.zeros((qr,), **zeros),
+        "wq_b": dense_init(gen, qr, H * (dn + dr), dtype, device),
+        "wkv_a": dense_init(gen, D, kvr + dr, dtype, device),
+        "kv_norm": torch.zeros((kvr,), **zeros),
+        "wk_b": dense_init(gen, kvr, H * dn, dtype, device),  # latent->k_nope
+        "wv_b": dense_init(gen, kvr, H * dv, dtype, device),  # latent->v
+        "wo": dense_init(gen, H * dv, D, dtype, device),
+    }
+
+
+def _mla_q(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    B, S, _ = x.shape
+    H, dn, dr = cfg.heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    B, S, _ = x.shape
+    kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    kv = x @ p["wkv_a"]
+    latent = rmsnorm(kv[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., kvr:].reshape(B, S, 1, dr), positions,
+                        cfg.rope_theta)
+    return latent, k_rope
+
+
+def mla_forward(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Train / prefill: expand per-head K/V from the latent (the standard
+    form), x: (B, S, D)."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = (latent @ p["wk_b"]).reshape(B, S, H, dn)
+    v = (latent @ p["wv_b"]).reshape(B, S, H, dv)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    ctx = attention_ctx(q, k, v, (dn + dr) ** -0.5)
+    return ctx.reshape(B, S, -1) @ p["wo"]
+
+
+def mla_cache_init(cfg, batch: int, s_max: int, dtype,
+                   device: torch.device) -> Params:
+    return {"latent": torch.zeros((batch, s_max, cfg.kv_lora_rank),
+                                  dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, s_max, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_prefill(p: Params, cfg, x: torch.Tensor, cache: Params
+                ) -> Tuple[torch.Tensor, Params]:
+    """Prefill: forward + a new cache holding the prompt's latent and
+    rope key in slots 0..S-1."""
+    S = x.shape[1]
+    if S > cache["latent"].shape[1]:
+        raise ValueError(f"prompt of {S} tokens exceeds the MLA cache of "
+                         f"{cache['latent'].shape[1]}")
+    out = mla_forward(p, cfg, x)
+    positions = torch.arange(S, device=x.device)[None, :]
+    latent, k_rope = _mla_latent(p, cfg, x, positions)
+    cl, cr = cache["latent"].clone(), cache["k_rope"].clone()
+    cl[:, :S], cr[:, :S] = latent, k_rope[:, :, 0]
+    return out, {"latent": cl, "k_rope": cr}
+
+
+def mla_decode(p: Params, cfg, x: torch.Tensor, cache: Params, pos: int
+               ) -> Tuple[torch.Tensor, Params]:
+    """Absorbed decode: scores and context computed in latent space.
+    x: (B, 1, D); cache: latent (B, S, kvr), k_rope (B, S, dr), written
+    in place at ``pos``."""
+    B = x.shape[0]
+    H, dn, dr, dv = cfg.heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    latent, k_rope = cache["latent"], cache["k_rope"]
+    S = latent.shape[1]
+    if pos >= S:
+        raise ValueError(f"position {pos} is past the MLA cache of {S}")
+    positions = torch.full((1, 1), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)      # (B,1,H,dn), (B,1,H,dr)
+    latent_new, k_rope_new = _mla_latent(p, cfg, x, positions)
+    latent[:, pos], k_rope[:, pos] = latent_new[:, 0], k_rope_new[:, 0, 0]
+    # absorb wk_b into q: q_eff (B, H, kvr)
+    wk = p["wk_b"].reshape(kvr, H, dn)
+    q_eff = torch.einsum("bhd,khd->bhk", q_nope[:, 0], wk)
+    scores = (torch.einsum("bhk,bsk->bhs", q_eff, latent)
+              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0], k_rope)).float()
+    scores = scores * (dn + dr) ** -0.5
+    valid = torch.arange(S, device=x.device) <= pos
+    scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(latent.dtype)
+    ctx_latent = torch.einsum("bhs,bsk->bhk", probs, latent)  # (B, H, kvr)
+    wv = p["wv_b"].reshape(kvr, H, dv)
+    ctx = torch.einsum("bhk,khd->bhd", ctx_latent, wv)
+    return ctx.reshape(B, 1, H * dv) @ p["wo"], {"latent": latent,
+                                                  "k_rope": k_rope}

@@ -59,6 +59,16 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
     return out.to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    out = out * (1.0 + gamma.float()) + beta.float()
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -101,6 +111,16 @@ def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                  device: torch.device) -> Params:
+    return {"wi": dense_init(gen, d_model, d_ff, dtype, device),
+            "wo": dense_init(gen, d_ff, d_model, dtype, device)}
+
+
+def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return gelu(x @ p["wi"]) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 
 ``params_from_jax`` takes the JAX parameter pytree with its leaves as
 numpy arrays (or anything ``np.asarray`` reads) and returns the port's
-parameter dict on ``device``: the same leaves (``embed``, ``final_norm``,
-``lm_head``, ``body.b<i>`` stacked over periods, ``tail.t<i>``), each
-copied and cast to the port's dtype for it.  It raises on a missing or
+parameter dict on ``device``: the same leaves (for a decoder stack
+``embed``, ``final_norm``, ``lm_head``, a vision config's ``vis_proj``,
+``body.b<i>`` stacked over periods and ``tail.t<i>``; for the
+encoder-decoder ``embed``, ``enc`` and ``dec`` stacked over layers,
+``enc_norm``, ``final_norm`` and ``lm_head``), each copied and cast to
+the port's dtype for it.  It raises on a missing or
 extra leaf and on a shape mismatch.
 """
 from __future__ import annotations
@@ -16,12 +19,14 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from .encdec import init_encdec_params
 from .transformer import init_lm_params
 
 
 def params_from_jax(tree: Any, cfg, device=DEFAULT_DEVICE) -> Any:
     dev = resolve_device(device)
-    want = init_lm_params(cfg, None, torch.device("meta"))
+    init = init_encdec_params if cfg.family == "encdec" else init_lm_params
+    want = init(cfg, None, torch.device("meta"))
     return _convert(tree, want, dev, "params")
 
 

@@ -1,12 +1,16 @@
 """Decoder-LM assembly for serving and training: the port of
-``repro.models.transformer`` for the block kinds ``attn`` (with a dense
-or an MoE FFN) and ``rec`` (RG-LRU).  Training (``lm_loss``) takes both
-FFNs: an MoE layer's router aux loss is carried in float32 through the
-stack, summed in layer order, and added to the loss with ``aux_weight``.
+``repro.models.transformer`` for every block kind: ``attn`` (GQA with a
+dense or an MoE FFN), ``mla`` (an ``attn`` layer of an MLA config),
+``rec`` (RG-LRU), and the xLSTM's ``mlstm`` and ``slstm``; and the
+vision frontend, whose projected image embeddings go in front of the
+token embeddings (the loss is taken on the text positions).  Training
+(``lm_loss``) carries an MoE layer's router aux loss in float32 through
+the stack, summed in layer order, and adds it with ``aux_weight``.
 
 Layers are grouped into repeating "periods" (the block pattern of hybrid
-archs; period 1 for homogeneous stacks).  Parameters keep the JAX
-package's layout, so weights carry across leaf for leaf:
+archs, the sLSTM period of xLSTM; period 1 for homogeneous stacks).
+Parameters keep the JAX package's layout, so weights carry across leaf
+for leaf:
   params["body"] = {"b<i>": block-params stacked over n_periods}
   params["tail"] = {"t<i>": block-params}
 PyTorch runs eagerly, so ``mode="scan"`` and ``"unroll"`` are the same
@@ -14,9 +18,6 @@ Python loop over the periods (indexing a stacked weight is a view).
 Caches keep one buffer per layer (the JAX package's ``stacked=False``
 serving layout): ``{"body": {"b<i>": [per-period cache]}, "tail":
 {"t<i>": cache}, "pos": int}``.
-
-MLA, xLSTM (mlstm / slstm) and the vision frontend come with later
-slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
+from . import xlstm as xlstm_mod
 from .common import (Params, dense_init, dtype_of, embed_init, rmsnorm,
                      softmax_xent, swiglu, swiglu_init)
 
@@ -35,7 +37,7 @@ MODES = ("scan", "unroll")
 
 
 # ---------------------------------------------------------------------------
-# layer plan and what this slice serves
+# layer plan
 # ---------------------------------------------------------------------------
 
 def layer_plan(cfg):
@@ -51,19 +53,17 @@ def layer_plan(cfg):
     return kinds[:p], full, tail
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what a later slice ports."""
-    later = []
-    if cfg.attn_kind == "mla":
-        later.append("MLA attention (the minicpm3 slice)")
-    if cfg.slstm_every:
-        later.append("mLSTM / sLSTM blocks (the xLSTM slice)")
-    if cfg.frontend == "vision":
-        later.append("the vision frontend (the internvl2 slice)")
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: " + "; ".join(later) + " come with a later slice "
-            "of the port; it serves GQA stacks (dense or MoE) and RG-LRU")
+def _resolve_kind(cfg, kind: str) -> str:
+    if kind == "attn" and cfg.attn_kind == "mla":
+        return "mla"
+    return kind
+
+
+def _period(cfg) -> Tuple[List[str], int, Tuple[str, ...]]:
+    """``layer_plan`` with each kind resolved."""
+    period, full, tail = layer_plan(cfg)
+    return ([_resolve_kind(cfg, k) for k in period], full,
+            tuple(_resolve_kind(cfg, k) for k in tail))
 
 
 def _check_mode(mode: str) -> None:
@@ -82,19 +82,25 @@ def _window(cfg) -> int:
 def _block_init(gen, cfg, kind: str, dtype, device) -> Params:
     D = cfg.d_model
     zeros = dict(dtype=dtype, device=device)
+    if kind in ("mlstm", "slstm"):
+        init = xlstm_mod.mlstm_init if kind == "mlstm" else \
+            xlstm_mod.slstm_init
+        return {"ln": torch.zeros((D,), **zeros),
+                "cell": init(gen, cfg, dtype, device)}
+    p = {"ln1": torch.zeros((D,), **zeros)}
     if kind == "attn":
-        return {"ln1": torch.zeros((D,), **zeros),
-                "attn": attn.gqa_init(gen, cfg, dtype, device),
-                "ln2": torch.zeros((D,), **zeros),
-                "mlp": (moe_mod.moe_init(gen, cfg, dtype, device)
-                        if cfg.is_moe else
-                        swiglu_init(gen, D, cfg.d_ff, dtype, device))}
-    if kind == "rec":
-        return {"ln1": torch.zeros((D,), **zeros),
-                "rec": rec_mod.rglru_init(gen, cfg, dtype, device),
-                "ln2": torch.zeros((D,), **zeros),
-                "mlp": swiglu_init(gen, D, cfg.d_ff, dtype, device)}
-    raise ValueError(kind)
+        p["attn"] = attn.gqa_init(gen, cfg, dtype, device)
+    elif kind == "mla":
+        p["attn"] = attn.mla_init(gen, cfg, dtype, device)
+    elif kind == "rec":
+        p["rec"] = rec_mod.rglru_init(gen, cfg, dtype, device)
+    else:
+        raise ValueError(kind)
+    p["ln2"] = torch.zeros((D,), **zeros)
+    p["mlp"] = (moe_mod.moe_init(gen, cfg, dtype, device)
+                if kind == "attn" and cfg.is_moe else
+                swiglu_init(gen, D, cfg.d_ff, dtype, device))
+    return p
 
 
 def _block_cache_init(cfg, kind: str, batch: int, s_max: int, dtype,
@@ -102,8 +108,14 @@ def _block_cache_init(cfg, kind: str, batch: int, s_max: int, dtype,
     if kind == "attn":
         return attn.gqa_cache_init(cfg, batch, s_max, _window(cfg), dtype,
                                    device)
+    if kind == "mla":
+        return attn.mla_cache_init(cfg, batch, s_max, dtype, device)
     if kind == "rec":
         return rec_mod.rglru_cache_init(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xlstm_mod.mlstm_cache_init(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return xlstm_mod.slstm_cache_init(cfg, batch, device)
     raise ValueError(kind)
 
 
@@ -116,11 +128,23 @@ def _ffn(p: Params, cfg, kind: str, x: torch.Tensor) -> torch.Tensor:
     return swiglu(p, x)
 
 
+def _xlstm_cell(kind: str):
+    return xlstm_mod.mlstm_forward if kind == "mlstm" else \
+        xlstm_mod.slstm_forward
+
+
 def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
                    cache: Params) -> Tuple[torch.Tensor, Params]:
+    if kind in ("mlstm", "slstm"):
+        y, state = _xlstm_cell(kind)(p["cell"], cfg,
+                                     rmsnorm(h, p["ln"], cfg.norm_eps),
+                                     return_state=True)
+        return h + y, state
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         y, cache = attn.gqa_prefill(p["attn"], cfg, x, cache, _window(cfg))
+    elif kind == "mla":
+        y, cache = attn.mla_prefill(p["attn"], cfg, x, cache)
     elif kind == "rec":
         y, cache = rec_mod.rglru_prefill(p["rec"], cfg, x)
     else:
@@ -132,10 +156,18 @@ def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
 
 def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
                   cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
+    if kind in ("mlstm", "slstm"):
+        decode = xlstm_mod.mlstm_decode if kind == "mlstm" else \
+            xlstm_mod.slstm_decode
+        y, cache = decode(p["cell"], cfg, rmsnorm(h, p["ln"], cfg.norm_eps),
+                          cache)
+        return h + y, cache
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         y, cache = attn.gqa_decode(p["attn"], cfg, x, cache, pos,
                                    _window(cfg))
+    elif kind == "mla":
+        y, cache = attn.mla_decode(p["attn"], cfg, x, cache, pos)
     elif kind == "rec":
         y, cache = rec_mod.rglru_decode(p["rec"], cfg, x, cache)
     else:
@@ -150,9 +182,14 @@ def _block_fwd(p: Params, cfg, kind: str, h: torch.Tensor,
     """Training / no-cache forward of one block: returns (h, aux), the
     MoE FFN of an ``attn`` block adding its router aux loss to the float32
     carry ``aux`` (as the JAX ``_block_fwd``)."""
+    if kind in ("mlstm", "slstm"):
+        return h + _xlstm_cell(kind)(p["cell"], cfg, rmsnorm(
+            h, p["ln"], cfg.norm_eps)), aux
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         h = h + attn.gqa_forward(p["attn"], cfg, x, _window(cfg))
+    elif kind == "mla":
+        h = h + attn.mla_forward(p["attn"], cfg, x)
     elif kind == "rec":
         h = h + rec_mod.rglru_forward(p["rec"], cfg, x)
     else:
@@ -168,10 +205,33 @@ def _block_fwd(p: Params, cfg, kind: str, h: torch.Tensor,
 # full-model init
 # ---------------------------------------------------------------------------
 
-def _stack(trees: List[Any]) -> Any:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def init_stacked(make, n: int) -> Any:
+    """``n`` trees from ``make()``, drawn in turn, stacked leaf by leaf
+    on a new leading axis.  Each tree is copied into preallocated stacks
+    as it is drawn, so the peak is the stack and one tree (stacking a
+    list of them would hold every tree beside the stack)."""
+    first = make()
+
+    def alloc(x):
+        return x.new_empty((n, *x.shape))
+
+    def fill(out, tree, j):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fill(out[k], v, j)
+            else:
+                out[k][j].copy_(v)
+
+    def empty(tree):
+        return {k: empty(v) if isinstance(v, dict) else alloc(v)
+                for k, v in tree.items()}
+
+    out = empty(first)
+    fill(out, first, 0)
+    del first
+    for j in range(1, n):
+        fill(out, make(), j)
+    return out
 
 
 def _index(tree: Any, j: int) -> Any:
@@ -184,18 +244,20 @@ def init_lm_params(cfg, gen: torch.Generator, device: torch.device
                    ) -> Params:
     """Random weights drawn from ``gen`` on ``device`` (``meta`` makes the
     shapes only), in the JAX package's layout and dtypes."""
-    check_supported(cfg)
     dt = dtype_of(cfg)
-    period, full, tail = layer_plan(cfg)
+    period, full, tail = _period(cfg)
     params: Params = {
         "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dt, device),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
         "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_padded, dt,
                               device),
     }
+    if cfg.frontend == "vision":
+        params["vis_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dt,
+                                        device)
     params["body"] = {
-        f"b{i}": _stack([_block_init(gen, cfg, kind, dt, device)
-                         for _ in range(full)])
+        f"b{i}": init_stacked(
+            lambda: _block_init(gen, cfg, kind, dt, device), full)
         for i, kind in enumerate(period)}
     params["tail"] = {f"t{i}": _block_init(gen, cfg, kind, dt, device)
                       for i, kind in enumerate(tail)}
@@ -203,9 +265,8 @@ def init_lm_params(cfg, gen: torch.Generator, device: torch.device
 
 
 def init_cache(cfg, batch: int, s_max: int, device: torch.device) -> Params:
-    check_supported(cfg)
     dt = dtype_of(cfg)
-    period, full, tail = layer_plan(cfg)
+    period, full, tail = _period(cfg)
     return {
         "body": {f"b{i}": [_block_cache_init(cfg, kind, batch, s_max, dt,
                                              device) for _ in range(full)]
@@ -224,7 +285,7 @@ def _run_stack(params: Params, cfg, h: torch.Tensor, cache: Params,
                step) -> Tuple[torch.Tensor, Params]:
     """Apply ``step(p, kind, h, layer_cache) -> (h, layer_cache)`` over
     the body periods, then the tail; returns h and the new caches."""
-    period, full, tail = layer_plan(cfg)
+    period, full, tail = _period(cfg)
     body: Dict[str, List[Params]] = {f"b{i}": [] for i in range(len(period))}
     for j in range(full):
         for i, kind in enumerate(period):
@@ -262,7 +323,7 @@ def forward_hidden(params: Params, cfg, h: torch.Tensor,
     aux carry passes through it with h.  The tail stays outside it, as in
     the JAX package."""
     _check_mode(mode)
-    period, full, tail = layer_plan(cfg)
+    period, full, tail = _period(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def superblock(h, aux, pslice):
@@ -278,21 +339,34 @@ def forward_hidden(params: Params, cfg, h: torch.Tensor,
     return h, aux
 
 
+def _embed_tokens(params: Params, cfg, batch) -> torch.Tensor:
+    """The token embeddings of ``batch["tokens"]`` (B, S), and for the
+    vision frontend the projected ``batch["image_embeds"]`` (B, F, D) in
+    front of them: (B, F + S, D)."""
+    h = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        vis = batch["image_embeds"].to(h.dtype) @ params["vis_proj"]
+        h = torch.cat([vis, h], dim=1)
+    return h
+
+
 def lm_loss(params: Params, cfg, batch, mode: str = "scan",
             remat: bool = False, aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (B, S), plus ``aux_weight`` times the router aux
     sum for an MoE config; returns (loss, {"xent", "moe_aux"}), the JAX
-    package's metrics.
+    package's metrics.  With the vision frontend's ``image_embeds`` the
+    loss is taken on the text positions only.
 
     As in the JAX ``lm_loss``, ``"xent"`` is the loss after the aux term
     is added (the reference rebinds ``loss`` before it builds the
     metrics); the port keeps that, so the metrics match."""
-    check_supported(cfg)
-    h, aux = forward_hidden(params, cfg, params["embed"][batch["tokens"]],
+    h, aux = forward_hidden(params, cfg, _embed_tokens(params, cfg, batch),
                             mode, remat)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        h = h[:, batch["image_embeds"].shape[1]:]
     logits = _mask_padded_vocab(cfg, h @ params["lm_head"])
     loss = softmax_xent(logits, batch["labels"])
     if cfg.is_moe:
@@ -310,11 +384,11 @@ def _mask_padded_vocab(cfg, logits: torch.Tensor) -> torch.Tensor:
 
 def lm_prefill_hidden(params: Params, cfg, batch, cache: Params
                       ) -> Tuple[torch.Tensor, Params]:
-    """Prefill the stack over ``batch["tokens"]`` (B, S): returns the
-    final-normed hidden states of every position (B, S, D) and the
-    populated cache."""
-    check_supported(cfg)
-    h = params["embed"][batch["tokens"]]
+    """Prefill the stack over ``batch["tokens"]`` (B, S), behind the
+    image embeddings of a vision config's ``batch["image_embeds"]`` (B, F,
+    D): returns the final-normed hidden states of every position (B,
+    F + S, D) and the populated cache."""
+    h = _embed_tokens(params, cfg, batch)
 
     def step(p, kind, h, c):
         return _block_prefill(p, cfg, kind, h, c)
@@ -337,7 +411,6 @@ def lm_decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
                    mode: str = "unroll") -> Tuple[torch.Tensor, Params]:
     """One-token decode. tokens: (B, 1). Returns (logits, cache)."""
     _check_mode(mode)
-    check_supported(cfg)
     pos = cache["pos"]
     h = params["embed"][tokens]
 

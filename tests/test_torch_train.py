@@ -220,13 +220,3 @@ def test_unit_content_is_byte_equal_to_jax_data(structured):
     loader.assign(0, [1, 2])
     loader.touch(1, [2, 3])
     assert (loader.refetched_units, loader.refetched_tokens) == (3, 297)
-
-
-def test_encdec_training_waits_for_its_slice():
-    """The MoE family trains since its slice (``tests/test_torch_train_
-    moe.py``); the encoder-decoder family still raises in ``Model.loss``."""
-    cfg = smoke_config(get_config("seamless-m4t-medium"))
-    m = build_model(cfg)
-    batch = data.unit_tokens(0, 1, 8, cfg.vocab_size)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        m.loss({}, loop._on_device(batch, torch.device("cpu")))
