@@ -325,7 +325,27 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     checkpoint leaf after step 3 and ``T_virtual``, ``I`` and ``moved``
     of every step equal between the straight and the resumed runs, the
     card's ``memory.used`` (sampled every 0.25 s, all processes) within
-    the card.
+    the card;
+28. the ``torch`` sampler backend, the row split and the examples: (a)
+    the Figure 5 panel through ``mc_grid_panel(..., backend="torch")`` at
+    paper scale -- the 28 claims, the work-exchange pair within 6 SE (or
+    2e-3) of phase 20's numpy panel at each point, the same seed twice
+    the same report, its warm wall beside phase 5's ``cuda`` wall, the
+    device's busy share and the host reads a round; (b) the ``drifting``
+    demo spec on ``torch`` against ``numpy``, 6 SE; (c) under
+    ``grid_sharding`` over 4 shards of card 0: the ``cuda`` split's 4
+    launches (counts zeroed just before, read just after), each bitwise
+    its plain version on the same card tensors and the split's rows
+    within phase 3's tolerance of the same split by the plain version on
+    4 CPU shards; the ``torch`` split seed-deterministic and within 6 SE
+    of numpy; the serving split over 2 shards giving the quick fig-load
+    study bitwise the unsplit one and within phase 24's bands of the
+    stored numpy entry (with several cards, (c) again over distinct
+    cards); (d) ``examples/torch_quickstart.py``,
+    ``torch_serve_batch.py --live`` and ``torch_train_het_sim.py`` with
+    ``--device cuda`` in background processes beside (b) and (c), each
+    exiting 0 with its healthy lines.  It adds a ``we_rounds`` entry for
+    the row split to the kernel line.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
@@ -546,6 +566,22 @@ ZOO_B, ZOO_PROMPT, ZOO_STEPS, ZOO_DEPTH = 4, 2048, 32, 3
 LAUNCH_XLSTM = ("--arch", "xlstm-350m", "--full-config", "--policy",
                 "work_exchange")
 LAUNCH_STEPS, LAUNCH_FIRST = 4, 2
+# phase 28: the torch backend, the row split and the examples.  The
+# shards of the cuda and torch splits and of the serving split (all on
+# card 0); the split's trials where its plain version runs on the CPU
+# (1000 rows: the plain Threefry on the host is slow at paper scale); the
+# examples, their arguments (small step counts) and the lines a healthy
+# run prints
+SPLIT_D, SERVE_SPLIT_D, SPLIT_CPU_TRIALS = 4, 2, 125
+EXAMPLES = (
+    ("torch_quickstart.py", ("--steps", "4"),
+     ("oracle lower bound", "work exchange", "cache HIT")),
+    ("torch_serve_batch.py", ("--live",),
+     ("greedy, KV-cached", "streaming prefill batches", "  work_exchange ",
+      "  work_exchange_unknown ", "  fixed ", "  uniform ", "SLO-miss",
+      "MC-predicted")),
+    ("torch_train_het_sim.py", ("--steps", "6"),
+     ("final-loss  virtual-time", "(oracle bound)")))
 REPLACES = {"linear_scan": "src/repro/kernels/linear_scan/kernel.py:22",
             "flash_attention":
             "src/repro/kernels/flash_attention/kernel.py:30",
@@ -895,6 +931,35 @@ def fig5_specs(HetSpec):
             specs.append(HetSpec.uniform_random(
                 K_PAPER, mu, frac * mu * mu, np.random.default_rng(int(mu))))
     return points, specs
+
+
+def fig5_table(points, specs, reports) -> list:
+    """Print the Figure 5 panel's mean T_comp per point and scheme, and
+    return the paper's claims on it: 28 ``(name, ok)`` checks."""
+    print("  mu     sigma2   oracle_exact " + " ".join(
+        f"{n[:14]:>14s}" for n in SCHEMES))
+    checks = []
+    for g, ((mu, label), het) in enumerate(zip(points, specs)):
+        exact = N_PAPER / het.lambda_sum
+        row = {n: reports[n][g].t_comp for n in SCHEMES}
+        print(f"  {mu:5.0f}  {label:7s}  {exact:12.2f} " + " ".join(
+            f"{row[n]:14.2f}" for n in SCHEMES))
+        for n in SCHEMES:
+            rep = reports[n][g]
+            if rep.trials != TRIALS or not np.isfinite(rep.t_comp):
+                checks.append((f"{n}[mu={mu},{label}] finite, "
+                               f"{TRIALS} trials", False))
+        tag = f"fig5[mu={mu:g},s2={label}]"
+        checks.append((f"{tag} WE-known within 5% of oracle",
+                       row["work_exchange"] <= 1.05 * exact))
+        checks.append((f"{tag} WE-unknown within 10% of oracle",
+                       row["work_exchange_unknown"] <= 1.10 * exact))
+        if label != "0":
+            checks.append((f"{tag} MDS >= WE",
+                           row["mds"] >= row["work_exchange"]))
+        checks.append((f"{tag} fixed >= oracle",
+                       row["fixed"] >= 0.999 * exact))
+    return checks
 
 
 def panel_rows(specs, trials: int, samplers):
@@ -2692,7 +2757,9 @@ def moe_train_phases(torch, dev, times):
 
 def exact_oracle_phase(torch, dev, points, specs):
     """Phase 20: the Figure 5 grid through the exact numpy engine at paper
-    scale, the ``cuda`` panel and the per-trial loop held against it."""
+    scale, the ``cuda`` panel and the per-trial loop held against it.
+    Returns the numpy panel's reports (phase 28 holds the ``torch``
+    backend against them)."""
     from repro_torch.core import get_scheme, mc_grid_panel
     schemes = {name: get_scheme(name) for name in EXACT_SCHEMES}
 
@@ -2759,6 +2826,7 @@ def exact_oracle_phase(torch, dev, points, specs):
           f"{worst['loop']:.3f} SE")
     if bad:
         fail("exact-oracle checks failed: " + "; ".join(bad))
+    return exact
 
 
 def het_fleet() -> np.ndarray:
@@ -4966,6 +5034,270 @@ def launcher_phase(torch, dev) -> None:
     print(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip()
+
+
+def split_rows(reports) -> np.ndarray:
+    """A grid's per-trial ``[t_comp, iterations, n_comm]`` rows."""
+    return np.concatenate([np.stack([r.t_comp_trials, r.iterations_trials,
+                                     r.n_comm_trials], 1) for r in reports])
+
+
+def split_checks(torch, dev, mesh, specs, exact, card) -> tuple:
+    """Phase 28 (c) over one device tuple: the ``cuda`` split (each shard
+    one kernel launch, bitwise its plain version on the same card tensors,
+    and within phase 3's row tolerance of the same split run by its plain
+    version on the CPU), the ``torch`` split (seed-deterministic, within 6
+    SE of phase 20's numpy panel) and the serving split over the first
+    ``SERVE_SPLIT_D`` devices (a quick fig-load study bitwise the unsplit
+    one and within phase 24's bands of the stored numpy entry).  Returns
+    (problems, the row split's ``we_rounds`` entry)."""
+    import repro_torch.experiments as ex
+    from repro_torch.core import get_scheme
+    from repro_torch.core.samplers import grid_sharding
+    from repro_torch.kernels.we_rounds import kernel as wk
+    from repro_torch.kernels.we_rounds import ops as wops
+    from repro_torch.kernels.we_rounds import ref as wref
+    from repro_torch.serving import scan
+    problems = []
+    label = ("cuda:0 x " + str(len(mesh)) if len(set(mesh)) == 1
+             else ", ".join(str(d) for d in mesh))
+    name = "work_exchange_unknown"
+    scheme = get_scheme(name)
+
+    def run(device, devices, trials, backend, seed):
+        with grid_sharding(devices, device=device):
+            return scheme.mc_grid(specs, N_PAPER, trials,
+                                  np.random.default_rng(seed),
+                                  keep_trials=True, backend=backend,
+                                  device=device)
+
+    wk.reset_launch_counts()
+    with recorded_calls(wops, "we_rounds_cuda") as calls:
+        t0 = time.perf_counter()
+        run(dev, mesh, TRIALS, "cuda", 28)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = wk.LAUNCH_COUNTS["we_rounds"]
+    bitwise = []
+    for (rows, seed, sched, flags), kw in calls:
+        got = wk.we_rounds_cuda(rows, seed, sched, flags, **kw)
+        want = torch.stack(wref.we_rounds_reference(
+            rows, seed, sched, known=kw["known"],
+            **{k: kw[k] for k in ("n0", "threshold", "cap", "max_iter")}),
+            dim=1)
+        bitwise.append(bool(torch.equal(got, want)))
+    shapes = sorted({tuple(c[0][0].shape) for c in calls})
+    print(f"  (c) cuda split over {label}: {launches} we_rounds launches "
+          f"({shapes} rows x workers each), {wall * 1e3:.3f} ms ({card}); "
+          f"each launch bitwise its plain version on the card: {bitwise}")
+    if launches != len(mesh) or len(calls) != len(mesh):
+        problems.append(f"cuda split over {label}: {launches} launches")
+    if not all(bitwise):
+        problems.append(f"cuda split over {label}: a shard's launch is not "
+                        f"bitwise its plain version")
+    ok_b, entry = we_rounds_entry(torch, f"row split ({label})", launches,
+                                  1, calls)
+    small_card = split_rows(run(dev, mesh, SPLIT_CPU_TRIALS, "cuda", 29))
+    small_cpu = split_rows(run("cpu", len(mesh), SPLIT_CPU_TRIALS, "cuda",
+                               29))
+    ok, stats = compare(torch, torch.from_numpy(small_card),
+                        torch.from_numpy(small_cpu))
+    print(f"  (c) the same split at {SPLIT_CPU_TRIALS} trials, card against "
+          f"its plain version over {len(mesh)} CPU shards: "
+          f"{'ok' if ok else 'FAIL'} " + " ".join(
+              f"{k}={v:.3e}" for k, v in stats.items()))
+    if not ok:
+        problems.append(f"cuda split over {label}: card against CPU")
+
+    a = run(dev, mesh, TRIALS, "torch", 30)
+    b = run(dev, mesh, TRIALS, "torch", 30)
+    same = np.array_equal(split_rows(a), split_rows(b))
+    gaps = [mean_gap(r, exact[name][g]) for g, r in enumerate(a)]
+    print(f"  (c) torch split over {label}: same seed twice bitwise "
+          f"{same}; {name} against phase 20's numpy panel, worst "
+          f"{max(gp for gp, _ in gaps):.3f} SE over {len(gaps)} points")
+    if not same or not all(ok for _, ok in gaps):
+        problems.append(f"torch split over {label}: deterministic {same}, "
+                        f"gaps {[round(gp, 2) for gp, _ in gaps]}")
+
+    serve_mesh = mesh[:SERVE_SPLIT_D]
+    spec_t = fig_load_experiment(ex, "stationary", True, backend="torch")
+    stored = json.loads(next(
+        path for path in sorted((ROOT / "results" / "store").glob("*.json"))
+        if json.loads(path.read_text())["spec"]["name"] == spec_t.name
+    ).read_text())
+    want = ex.ExperimentResult.from_dict(stored)
+    whole = ex.run_experiment(spec_t, device=dev)
+    with grid_sharding(serve_mesh, device=dev), \
+            recorded_sweeps(scan) as sweeps:
+        t0 = time.perf_counter()
+        split = ex.run_experiment(spec_t, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    equal = split.to_dict()["reports"] == whole.to_dict()["reports"]
+    bad, worst, _ = serving_checks(split, want, sweeps, spec_t.N)
+    print(f"  (c) serving split over {', '.join(map(str, serve_mesh))}: "
+          f"{spec_t.name} on torch {wall:.3f} s ({card}); reports == the "
+          f"unsplit run's: {equal}; against the stored numpy entry t_comp "
+          f"worst {worst['t_comp']:.3f} SE, percentiles worst "
+          f"{worst['pct']:.3f} of their own SE; {len(bad)} problems")
+    if not equal:
+        problems.append("serving split: reports differ from the unsplit run")
+    problems += [f"serving split: {p}" for p in bad]
+    return problems, entry
+
+
+def fluid_phase(torch, dev, points, specs, exact, cuda_wall: float) -> list:
+    """Phase 28: (a) the ``torch`` backend at paper scale, the Figure 5
+    panel through ``mc_grid_panel(..., backend="torch")``: the 28 claims,
+    the pair within 6 SE (or 2e-3) of phase 20's numpy panel, the same
+    seed twice the same report, the panel's warm wall beside phase 5's
+    ``cuda`` wall, the device's busy share and the host reads a round;
+    (b) the ``drifting`` demo spec on ``torch`` against ``numpy``; (c)
+    ``split_checks`` over 4 shards of card 0 (and over distinct cards
+    where there are several); (d) the three examples with ``--device
+    cuda`` in background processes beside (b) and (c).  Returns the row
+    split's ``we_rounds`` entries."""
+    import repro_torch.experiments as ex
+    from repro_torch.core import fluid, get_scheme, mc_grid_panel
+    from repro_torch.core.samplers import grid_devices
+    from repro_torch.experiments.__main__ import demo_spec
+    card = card_line()
+    print(f"phase 28: the torch backend, the row split and the examples "
+          f"({card})")
+    t_phase = time.perf_counter()
+    problems, entries = [], []
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    procs = {}
+    try:
+        for script, args, _ in EXAMPLES:
+            procs[script] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, f"examples/{script}", "--device", dev.type,
+                 *args], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env))
+
+        # (c) the row split
+        meshes = [(dev,) * SPLIT_D]
+        if torch.cuda.device_count() > 1:
+            meshes.append(grid_devices(SPLIT_D, dev))
+            print(f"  {torch.cuda.device_count()} cards: (c) runs again "
+                  f"over {', '.join(map(str, meshes[1]))}")
+        for mesh in meshes:
+            bad, entry = split_checks(torch, dev, mesh, specs, exact, card)
+            problems += bad
+            entries.append(entry)
+
+        # (b) one drifting spec on torch against numpy
+        spec = demo_spec("drifting").replace(trials=TRIALS)
+        t0 = time.perf_counter()
+        fl = ex.run_experiment(spec.replace(backend="torch"), device=dev)
+        torch.cuda.synchronize()
+        fl_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        npy = ex.run_experiment(spec.replace(backend="numpy"), device=dev)
+        np_s = time.perf_counter() - t0
+        gaps = {(k, g): mean_gap(a, b) for k in fl.keys()
+                for g, (a, b) in enumerate(zip(fl.report(k),
+                                               npy.report(k)))}
+        worst = max(gp for gp, _ in gaps.values())
+        print(f"  (b) {spec.name} ({len(spec.schemes)} schemes x "
+              f"{len(spec.grid)} points x {spec.trials} trials): torch on "
+              f"the card {fl_s:.3f} s ({card}), numpy {np_s:.3f} s; torch "
+              f"against numpy worst {worst:.3f} SE")
+        problems += [f"drifting {k}[{g}] {gp:.2f} SE from numpy"
+                     for (k, g), (gp, ok) in gaps.items() if not ok]
+
+        # (d) the examples
+        for script, _, lines in EXAMPLES:
+            t0, proc = procs[script]
+            out, err = proc.communicate(timeout=600)
+            missing = [x for x in lines if x not in out]
+            tail = (out.strip().splitlines() or [err.strip()])[-1]
+            print(f"  (d) examples/{script} --device {dev.type}: exit "
+                  f"{proc.returncode} in {time.perf_counter() - t0:.1f} s "
+                  f"({card}, beside (b) and (c)); healthy lines "
+                  f"{len(lines) - len(missing)}/{len(lines)}; last: "
+                  f"{tail[:90]}")
+            if proc.returncode != 0 or missing:
+                problems.append(f"examples/{script}: exit {proc.returncode}"
+                                f", missing {missing}: {err.strip()[-300:]}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # (a) the torch backend at paper scale, alone
+    schemes = {n: get_scheme(n) for n in SCHEMES}
+
+    def run_panel():
+        out = mc_grid_panel(schemes, specs, N_PAPER, TRIALS,
+                            np.random.default_rng(1234), backend="torch",
+                            device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    fluid.reset_host_reads()
+    t0 = time.perf_counter()
+    reports = run_panel()
+    first_s = time.perf_counter() - t0
+    reads = dict(fluid.HOST_READS)
+    print(f"  (a) fig5 panel on torch, K={K_PAPER} N={N_PAPER} trials="
+          f"{TRIALS} grid={len(specs)}: {first_s:.3f} s (first run, "
+          f"{card}); {reads['rounds']} rounds, {reads['reads']} host reads "
+          f"({reads['reads'] / max(reads['rounds'], 1):.3f} a round)")
+    checks = fig5_table(points, specs, reports)
+    for g, ((mu, label), _) in enumerate(zip(points, specs)):
+        for n in WE_PAIR:
+            gap, ok = mean_gap(reports[n][g], exact[n][g])
+            checks.append((f"torch {n}[mu={mu:g},s2={label}] within "
+                           f"{MEAN_SE:g} SE of numpy ({gap:.2f})", ok))
+    again = run_panel()
+    same = all(a.to_dict() == b.to_dict() for n in SCHEMES
+               for a, b in zip(reports[n], again[n]))
+    checks.append(("torch panel: the same seed twice, the same report",
+                   same))
+    bad = [name for name, ok in checks if not ok]
+    worst = max(mean_gap(reports[n][g], exact[n][g])[0]
+                for n in WE_PAIR for g in range(len(specs)))
+    print(f"  (a) paper-claim and numpy checks on torch: "
+          f"{len(checks) - len(bad)}/{len(checks)} passed; the pair's worst "
+          f"gap to numpy {worst:.3f} SE")
+    problems += bad
+    wall = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_panel()
+        wall = min(wall, time.perf_counter() - t0)
+    print(f"  (a) fig5 panel wall (6 schemes, 8 points x {TRIALS} trials): "
+          f"torch {wall * 1e3:.3f} ms, cuda {cuda_wall * 1e3:.3f} ms "
+          f"(phase 5) (warm min of 3, {card})")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_panel()
+        prof_wall = time.perf_counter() - t0
+    dev_us = sum(e.self_device_time_total for e in device_rows(torch, prof)[0]
+                 if e.self_device_time_total > 0)
+    share = 100 * dev_us / (prof_wall * 1e6)
+    print(f"  (a) profiled torch panel: wall {prof_wall * 1e3:.3f} ms, "
+          + (f"device busy {dev_us / 1e3:.3f} ms ({share:.2f}% of wall)"
+             if dev_us > 0 else "the profiler recorded no device time "
+             "(busy share not measured)") + f" ({card})")
+    print(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        fail("phase 28: " + "; ".join(problems[:12]))
+    return entries
+
+
 def main() -> None:
     import torch
 
@@ -5095,29 +5427,7 @@ def main() -> None:
           f"{launches}")
     if launches["we_rounds"] < 1:
         fail("the main path launched the we_rounds kernel no time")
-    print("  mu     sigma2   oracle_exact " + " ".join(
-        f"{n[:14]:>14s}" for n in SCHEMES))
-    checks = []
-    for g, ((mu, label), het) in enumerate(zip(points, specs)):
-        exact = N_PAPER / het.lambda_sum
-        row = {n: reports[n][g].t_comp for n in SCHEMES}
-        print(f"  {mu:5.0f}  {label:7s}  {exact:12.2f} " + " ".join(
-            f"{row[n]:14.2f}" for n in SCHEMES))
-        for n in SCHEMES:
-            rep = reports[n][g]
-            if rep.trials != TRIALS or not np.isfinite(rep.t_comp):
-                checks.append((f"{n}[mu={mu},{label}] finite, "
-                               f"{TRIALS} trials", False))
-        tag = f"fig5[mu={mu:g},s2={label}]"
-        checks.append((f"{tag} WE-known within 5% of oracle",
-                       row["work_exchange"] <= 1.05 * exact))
-        checks.append((f"{tag} WE-unknown within 10% of oracle",
-                       row["work_exchange_unknown"] <= 1.10 * exact))
-        if label != "0":
-            checks.append((f"{tag} MDS >= WE",
-                           row["mds"] >= row["work_exchange"]))
-        checks.append((f"{tag} fixed >= oracle",
-                       row["fixed"] >= 0.999 * exact))
+    checks = fig5_table(points, specs, reports)
     bad = [name for name, ok in checks if not ok]
     print(f"paper-claim checks: {len(checks) - len(bad)}/{len(checks)} "
           f"passed")
@@ -5208,7 +5518,7 @@ def main() -> None:
     clock("phases 10-13")
     train_kernels = train_phases(torch, dev)
     clock("phases 14-19")
-    exact_oracle_phase(torch, dev, points, specs)
+    exact = exact_oracle_phase(torch, dev, points, specs)
     clock("phase 20")
     het_kernels = het_phases(torch, dev)
     clock("phases 21-22")
@@ -5222,6 +5532,8 @@ def main() -> None:
     clock("phase 26")
     launcher_phase(torch, dev)
     clock("phase 27")
+    fluid_kernels = fluid_phase(torch, dev, points, specs, exact, wall)
+    clock("phase 28")
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -5232,7 +5544,7 @@ def main() -> None:
         "bound_ms": bounds[B0][0], "bound_by": bounds[B0][1],
         "library_ms": None}] + serve_kernels + moe_kernels
         + train_kernels + het_kernels + experiment_kernels
-        + zoo_kernels}))
+        + zoo_kernels + fluid_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,10 @@ Layout (each module the counterpart of its namesake in ``repro.core``)
   exchange     -- unit-id-level master protocol (Algorithms 1 & 3) and the
                   one-shot cover scheduler of gradient coding
   samplers     -- the sampler backends behind Scheme.mc + mc_grid: the
-                  exact numpy engine (``numpy``, host) and the fused
+                  exact numpy engine (``numpy``, host), the fused
                   we_rounds kernel (``cuda``; its plain PyTorch version on
-                  the CPU)
+                  the CPU) and the fluid engine as torch ops (``torch``,
+                  ``fluid``); ``grid_sharding`` splits rows over devices
   schemes      -- the policy surface: oracle, fixed, uniform, mds, work
                   exchange with known / unknown rates, het_mds,
                   trace_replay, gradient_coded, hedged;

@@ -2,21 +2,31 @@
 
 The reference registers ``numpy`` (exact), ``jax`` (jitted fluid
 relaxation) and ``pallas`` (the fused ``we_rounds`` kernel).  The port
-registers two of their counterparts:
+registers a counterpart of each:
 
 ``numpy``
     The exact integer-unit engine (largest-remainder assignments, exact
     ``Generator.gamma`` / ``Generator.binomial`` draws), the port's own
     copy of the reference's: from the same Generator it draws in the same
     order and returns the same bits.  It runs on the host whatever the
-    ``device``, and is the oracle the other backend is held against.
+    ``device``, and is the oracle the other backends are held against.
+
+``torch``
+    The role of ``jax``: the fluid relaxation -- real-valued proportional
+    shares, the mean-exact Marsaglia-Tsang Gamma with the small-shape
+    boost, the per-trial argmin, the normal-limit Binomial, the online
+    estimate -- as a loop of torch ops over exchange rounds on the device
+    (``repro_torch.core.fluid``), its variates from a ``torch.Generator``
+    there.  Like the reference's engine it consumes one
+    ``rng.integers(2**63 - 1)`` draw per call, pads to the same buckets
+    (rows to the ``_rows_target`` bucket of 64), and is statistically --
+    not bitwise -- the reference's.  It has the coupled known/unknown
+    panel and the coupled MDS sweep.
 
 ``cuda``
-    The role of ``pallas``: the same fluid relaxation as the reference's
-    transform backends -- counter-based Threefry-2x32 bits keyed per
-    ``(trial, worker, round)``, the mean-exact Marsaglia-Tsang Gamma, the
-    per-trial argmin, the normal-limit Binomial -- fused into the
-    hand-written CUDA kernel ``repro_torch.kernels.we_rounds`` on the
+    The role of ``pallas``: the same fluid relaxation with counter-based
+    Threefry-2x32 bits keyed per ``(trial, worker, round)``, fused into
+    the hand-written CUDA kernel ``repro_torch.kernels.we_rounds`` on the
     card, and its plain PyTorch version for tensors on the CPU.  It
     consumes the numpy ``Generator`` exactly as the reference ``pallas``
     backend does (one ``rng.integers(0, 2**32, size=2)`` draw per engine
@@ -28,24 +38,33 @@ registers two of their counterparts:
 The grid contract returns flat per-run arrays ``(t_comp, iterations,
 n_comm)`` of length ``G * trials`` in grid-major order.  Every backend
 call takes ``capped_mode`` (only ``numpy`` has ``"waterfill"``) and
-``device=`` (default ``"cuda"``, which raises without a card).  Backends
-are selected per call (``mc(..., backend="numpy")``); ``cuda`` is the
-default, and ``numpy`` is the caller's explicit choice of the exact host
-engine, never a fallback.
+``device=`` (default ``"cuda"``, which raises without a card).  A backend
+is selected per call (``mc(..., backend="torch")``), else by
+``REPRO_SAMPLER_BACKEND``, else ``cuda``; ``numpy`` is the caller's
+explicit choice of the exact host engine, never a fallback.
+
+Inside ``grid_sharding(devices)`` the ``torch`` and ``cuda`` grid calls
+split their rows over several devices, one independent stream per shard
+(the reference's ``shard_map`` executor); one device is a no-op.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Literal, Optional, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Literal, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from ..device import DEFAULT_DEVICE
+from ..device import DEFAULT_DEVICE, resolve_device
 from .assignment import (capped_proportional_assignment_batch,
                          largest_remainder_round_batch)
 from .registry import Registry
 from .types import ExchangeConfig
 
+ENV_VAR = "REPRO_SAMPLER_BACKEND"
 DEFAULT_BACKEND = "cuda"
 
 # (t_comp, iterations, n_comm), each shape (G * trials,), grid-major
@@ -102,10 +121,12 @@ def get_backend(name: str) -> SamplerBackend:
 
 
 def validate_backend(backend: Optional[str] = None) -> str:
-    """``backend`` or the ``cuda`` default; an unknown name raises a
-    ``KeyError`` listing the registered backends (schemes that never draw
-    through a backend still validate it)."""
-    name = backend or DEFAULT_BACKEND
+    """``backend``, else ``$REPRO_SAMPLER_BACKEND``, else the ``cuda``
+    default; an unknown name -- a reference name such as ``jax`` or
+    ``pallas`` too -- raises a ``KeyError`` listing the registered
+    backends (schemes that never draw through a backend still validate
+    it)."""
+    name = backend or os.environ.get(ENV_VAR) or DEFAULT_BACKEND
     get_backend(name)
     return name
 
@@ -119,6 +140,82 @@ resolve_backend = validate_backend
 def get_gamma_rows(name: str) -> GammaRowsFn:
     """The backend's batched Gamma-rows primitive."""
     return get_backend(name).gamma_rows
+
+
+# ---------------------------------------------------------------------------
+# multi-device grid sharding (the experiment layer's device axis)
+# ---------------------------------------------------------------------------
+
+_GRID_MESH: List[Optional[Tuple[torch.device, ...]]] = [None]
+
+
+def grid_devices(devices=None, device=DEFAULT_DEVICE
+                 ) -> Tuple[torch.device, ...]:
+    """The shard devices ``devices`` names: a sequence of devices as
+    given (one card may hold several shards), or a count -- ``None`` for
+    every card -- of ``device``'s type: the first cards, at most
+    ``torch.cuda.device_count()``, or that many shards of the CPU."""
+    dev = resolve_device(device)
+    if devices is not None and not isinstance(devices, (int, np.integer)):
+        mesh = tuple(resolve_device(d) for d in devices)
+        if not mesh:
+            raise ValueError("grid_sharding needs at least one device")
+        return mesh
+    if dev.type == "cpu":
+        return (dev,) * max(1, int(devices or 1))
+    have = torch.cuda.device_count()
+    n = have if devices is None else max(1, min(int(devices), have))
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+@contextlib.contextmanager
+def grid_sharding(devices=None, device=DEFAULT_DEVICE):
+    """Split backend grid calls' rows over devices inside the context.
+
+    ``devices`` as ``grid_devices`` takes it.  The ``torch`` and ``cuda``
+    ``work_exchange_grid`` calls (and the ``cuda`` panel, whose stacked
+    rows carry their flags) cut their padded rows into ``D`` contiguous
+    blocks of ``ceil(B / D)`` and run each on its own device with its own
+    stream -- no collectives.  ``numpy`` is untouched: it stays the exact
+    single-device oracle.  With one device the context is a no-op, so
+    callers can wrap unconditionally.  Yields the device tuple."""
+    mesh = grid_devices(devices, device)
+    prev = _GRID_MESH[0]
+    _GRID_MESH[0] = mesh if len(mesh) > 1 else None
+    try:
+        yield mesh
+    finally:
+        _GRID_MESH[0] = prev
+
+
+def active_grid_mesh() -> Optional[Tuple[torch.device, ...]]:
+    """The shard devices installed by ``grid_sharding``, or None."""
+    return _GRID_MESH[0]
+
+
+def run_shards(fn: Callable, mesh: Sequence[torch.device],
+               args: Sequence[tuple]) -> list:
+    """``[fn(dev, *a) for dev, a in zip(mesh, args)]``: one thread per
+    shard where the shards sit on distinct cards (each card then works
+    while the host waits on another), in turn otherwise."""
+    if len(set(mesh)) < len(mesh) or mesh[0].type != "cuda":
+        return [fn(d, *a) for d, a in zip(mesh, args)]
+
+    def on_card(d, a):
+        with torch.cuda.device(d):
+            return fn(d, *a)
+
+    with ThreadPoolExecutor(len(mesh)) as pool:
+        futures = [pool.submit(on_card, d, a) for d, a in zip(mesh, args)]
+        return [f.result() for f in futures]
+
+
+def shard_bounds(B: int, D: int) -> List[Tuple[int, int]]:
+    """The ``[lo, hi)`` row blocks of a ``D``-way split of ``B`` rows
+    padded to a multiple of ``D``: ``ceil(B / D)`` rows a shard, the
+    layout of the reference's sharded run on the CPU."""
+    per = -(-B // D)
+    return [(d * per, (d + 1) * per) for d in range(D)]
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +248,21 @@ def bucket_rounds(R: int) -> int:
     if R <= 16:
         return 1 << max(R - 1, 0).bit_length()
     return -(-R // 16) * 16
+
+
+def grid_bucket_shape(G: int, trials: int, K: int,
+                      R: Optional[int] = None,
+                      backend: Optional[str] = None) -> Dict[str, int]:
+    """The padded ``(rows, K[, R])`` bucket a ``(G, trials, K[, R])``
+    grid runs at on a fluid backend: rows to the ``_rows_target`` bucket
+    (128, the kernel's tile, on ``cuda``; 64 on ``torch``), K to
+    ``bucket_cols``, a drift schedule's rounds to ``bucket_rounds``."""
+    bucket = 128 if resolve_backend(backend) == "cuda" else 64
+    shape = {"rows": _rows_target(G * int(trials), bucket),
+             "K": bucket_cols(K)}
+    if R is not None:
+        shape["R"] = bucket_rounds(R)
+    return shape
 
 
 def _pad_rows(rows: np.ndarray, bucket: int = 64) -> Tuple[np.ndarray, int]:
@@ -423,6 +535,19 @@ def gamma_rows_numpy(shape_rows: np.ndarray, scale_rows: np.ndarray,
     return rng.gamma(shape=shape_rows, scale=scale_rows)
 
 
+def shard_devices(device) -> Tuple[torch.device, ...]:
+    """The devices a grid call runs on: the active ``grid_sharding``'s,
+    which must be of ``device``'s type, else ``device`` alone."""
+    dev = resolve_device(device)
+    mesh = active_grid_mesh()
+    if mesh is None:
+        return (dev,)
+    if any(d.type != dev.type for d in mesh):
+        raise ValueError(f"grid_sharding over {[str(d) for d in mesh]} "
+                         f"does not match device={str(dev)!r}")
+    return mesh
+
+
 # ---------------------------------------------------------------------------
 # cuda backend: the fused we_rounds kernel (repro_torch.kernels.we_rounds)
 # ---------------------------------------------------------------------------
@@ -435,8 +560,10 @@ def work_exchange_grid_cuda(lam: np.ndarray, N: int, cfg: ExchangeConfig,
                             device=DEFAULT_DEVICE) -> GridArrays:
     """One fused pass over the ``(G * trials, K)`` grid: the CUDA kernel
     on the card, its plain PyTorch version on the CPU.  The numpy ``rng``
-    only seeds the Threefry key (one draw).  Only the paper's ``carry``
-    storage mode exists here, as on the reference ``pallas`` backend."""
+    only seeds the Threefry key: one pair, or under ``grid_sharding`` one
+    ``(D, 2)`` draw, a pair per shard, as the reference's ``pallas``
+    backend draws.  Only the paper's ``carry`` storage mode exists here,
+    as on the reference ``pallas`` backend."""
     if capped_mode != "carry":
         raise ValueError(
             "the cuda sampler backend implements the paper-faithful "
@@ -457,12 +584,14 @@ def work_exchange_grid_cuda(lam: np.ndarray, N: int, cfg: ExchangeConfig,
     if rate_schedule is not None:
         sched_rows = _pad_rows_like(
             _schedule_rows(rate_schedule, G, K, trials), lam_rows.shape[0])
-    seed = rng.integers(0, 2 ** 32, size=2, dtype=np.uint32)
+    mesh = shard_devices(device)
+    seed = rng.integers(0, 2 ** 32, size=(len(mesh), 2), dtype=np.uint32)
     t, it, cm = we_rounds_grid(lam_rows, seed, n0=float(N),
                                threshold=float(threshold), cap=cap,
                                known=bool(known),
                                max_iter=int(cfg.max_iterations),
-                               device=device, rate_schedule=sched_rows)
+                               device=device, rate_schedule=sched_rows,
+                               mesh=mesh)
     return t[:B], it[:B], cm[:B]
 
 
@@ -500,8 +629,9 @@ def work_exchange_panel_cuda(lam: np.ndarray, N: int,
                              ) -> Dict[str, GridArrays]:
     """The pair as ONE ``we_rounds`` launch: known rows stacked on top of
     unknown rows with a per-row flag column (padding rows are flagged
-    known).  Returns ``{"known": (t, it, cm), "unknown": ...}`` in the
-    usual grid-major layout."""
+    known); under ``grid_sharding`` one launch per shard, each flag
+    travelling with its row.  Returns ``{"known": (t, it, cm), "unknown":
+    ...}`` in the usual grid-major layout."""
     from ..kernels.we_rounds import we_rounds_grid
 
     _panel_pair_check(cfg_known, cfg_unknown)
@@ -520,14 +650,173 @@ def work_exchange_panel_cuda(lam: np.ndarray, N: int,
         sched_half = _schedule_rows(rate_schedule, G, K, trials)
         sched_rows = _pad_rows_like(
             np.concatenate([sched_half, sched_half]), stacked.shape[0])
-    seed = rng.integers(0, 2 ** 32, size=2, dtype=np.uint32)
+    mesh = shard_devices(device)
+    seed = rng.integers(0, 2 ** 32, size=(len(mesh), 2), dtype=np.uint32)
     t, it, cm = we_rounds_grid(stacked, seed, n0=float(N),
                                threshold=float(threshold), cap=cap_u,
                                known=flags,
                                max_iter=int(cfg_known.max_iterations),
-                               device=device, rate_schedule=sched_rows)
+                               device=device, rate_schedule=sched_rows,
+                               mesh=mesh)
     return {"known": (t[:B], it[:B], cm[:B]),
             "unknown": (t[B:2 * B], it[B:2 * B], cm[B:2 * B])}
+
+
+# ---------------------------------------------------------------------------
+# torch backend: the fluid relaxation as torch ops (repro_torch.core.fluid)
+# ---------------------------------------------------------------------------
+
+PANEL_CHUNK_ENV = "REPRO_PANEL_CHUNK"
+
+
+def _panel_chunk() -> int:
+    return max(1, int(os.environ.get(PANEL_CHUNK_ENV, "4")))
+
+
+def _torch_seed(rng: np.random.Generator) -> int:
+    """The one draw a ``torch`` backend call takes from ``rng``, as the
+    reference's ``jax`` backend takes it for its key."""
+    return int(rng.integers(2 ** 63 - 1))
+
+
+def _shard_seeds(seed: int, D: int) -> List[int]:
+    """The generator seed of each of D shards: the one draw itself for
+    one shard, else D seeds derived from it (the reference splits its key
+    D ways)."""
+    if D == 1:
+        return [seed]
+    return [int(c.generate_state(1, np.uint64)[0] >> np.uint64(1))
+            for c in np.random.SeedSequence(seed).spawn(D)]
+
+
+def work_exchange_grid_torch(lam: np.ndarray, N: int, cfg: ExchangeConfig,
+                             trials: int, rng: np.random.Generator,
+                             capped_mode: Literal["carry", "waterfill"]
+                             = "carry",
+                             rate_schedule: Optional[np.ndarray] = None,
+                             device=DEFAULT_DEVICE) -> GridArrays:
+    """The fluid-relaxation engine over the ``(G * trials, K)`` grid as
+    torch ops on ``device`` (``fluid.run_grid``).
+
+    The numpy ``rng`` gives one ``integers(2**63 - 1)`` draw, the seed of
+    the device generator, as the reference's ``jax`` backend seeds its
+    key, so schemes sharing a Generator stay on the reference's draws
+    after a call.  Rows pad to the ``_rows_target`` bucket of 64, K to
+    ``bucket_cols``, a drift schedule's rounds to ``bucket_rounds``.
+    Under ``grid_sharding`` the padded rows (and their schedule) pad to a
+    multiple of D with copies of row 0 and split into D blocks, each on
+    its own device with a generator derived from the one draw.
+    ``rate_schedule`` (``(G, R, K)``) drives drift as on every backend.
+    Only the paper's ``carry`` storage mode exists here, as on the
+    reference ``jax`` backend."""
+    if capped_mode != "carry":
+        raise ValueError(
+            "the torch sampler backend implements the paper-faithful "
+            "'carry' storage mode only; use backend='numpy' for "
+            "'waterfill'")
+    from .fluid import make_generator, run_grid
+
+    dev = resolve_device(device)
+    lam = _lam_rows(lam)
+    G, K = lam.shape
+    known = cfg.known_heterogeneity
+    # threshold / cap come from the real worker count; the K bucket only
+    # adds masked zero-rate columns
+    threshold = cfg.threshold_frac * N / K
+    cap = (np.inf if cfg.storage_cap_frac is None or known
+           else float(np.ceil(cfg.storage_cap_frac * N / K)))
+    lam_rows, B = _pad_rows(np.repeat(_pad_cols(lam, bucket_cols(K)),
+                                      int(trials), axis=0))
+    sched_rows = None
+    if rate_schedule is not None:
+        sched_rows = _pad_rows_like(
+            _schedule_rows(rate_schedule, G, K, trials), lam_rows.shape[0])
+    mesh = shard_devices(dev)
+    kw = dict(n0=float(N), threshold=float(threshold), cap=float(cap),
+              known=bool(known), max_iter=int(cfg.max_iterations))
+
+    def run(shard_dev, rows, sched, shard_seed):
+        def on_dev(a):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a)).to(shard_dev)
+        cols = run_grid(on_dev(rows), on_dev(sched),
+                        make_generator(shard_seed, shard_dev), **kw)
+        return torch.stack(cols, 1).cpu().numpy()
+
+    bounds = shard_bounds(lam_rows.shape[0], len(mesh))
+    lam_rows = _pad_rows_like(lam_rows, bounds[-1][1])
+    if sched_rows is not None:
+        sched_rows = _pad_rows_like(sched_rows, bounds[-1][1])
+    out = np.concatenate(run_shards(run, mesh, [
+        (lam_rows[lo:hi], None if sched_rows is None else sched_rows[lo:hi],
+         s) for (lo, hi), s in zip(bounds, _shard_seeds(_torch_seed(rng),
+                                                         len(mesh)))]))
+    out = out.astype(np.float64)[:B]
+    return out[:, 0], out[:, 1], out[:, 2]
+
+
+def gamma_rows_torch(shape_rows: np.ndarray, scale_rows: np.ndarray,
+                     rng: np.random.Generator,
+                     device=DEFAULT_DEVICE) -> np.ndarray:
+    """Batched MT-transform Gammas on ``device`` (mean-exact; the boost
+    chain runs only when some shape is below 3).  Compact ``(R, 1)``
+    shape columns stay compact until the draw.  One ``integers(2**63 -
+    1)`` draw seeds the device generator; the output is float32, a copy
+    the caller owns (callers sort in place)."""
+    from .fluid import gamma_mt, gamma_mt_large, make_generator
+
+    dev = resolve_device(device)
+    padded_shape, padded_scale, R = _gamma_rows_prep(shape_rows, scale_rows)
+    boost = bool((padded_shape < 3.0).any())
+    gen = make_generator(_torch_seed(rng), dev)
+    alpha = torch.from_numpy(padded_shape).to(dev)
+    scale = torch.from_numpy(padded_scale).to(dev)
+    alpha = alpha.expand(torch.broadcast_shapes(alpha.shape, scale.shape))
+    draw = gamma_mt if boost else gamma_mt_large
+    return np.array(draw(gen, alpha, scale)[:R].cpu().numpy())
+
+
+def work_exchange_panel_torch(lam: np.ndarray, N: int,
+                              cfg_known: ExchangeConfig,
+                              cfg_unknown: ExchangeConfig,
+                              trials: int, rng: np.random.Generator,
+                              rate_schedule: Optional[np.ndarray] = None,
+                              device=DEFAULT_DEVICE
+                              ) -> Dict[str, GridArrays]:
+    """The work-exchange pair over a whole ``(G, K)`` panel in one coupled
+    engine on ``device`` (``fluid.run_panel``): both schemes' rounds of a
+    trial share one row and one stream (common random numbers), rounds
+    run in chunks of ``$REPRO_PANEL_CHUNK`` (default 4) and the host
+    compacts finished rows away between chunks.  One ``integers(2**63 -
+    1)`` draw seeds the device generator.  It runs on ``device`` alone, as
+    the reference's ``jax`` panel ignores a grid mesh.  Returns
+    ``{"known": (t, it, cm), "unknown": ...}`` in the grid-major
+    layout."""
+    from .fluid import make_generator, run_panel
+
+    _panel_pair_check(cfg_known, cfg_unknown)
+    dev = resolve_device(device)
+    lam = _lam_rows(lam)
+    G, K = lam.shape
+    threshold = cfg_known.threshold_frac * N / K
+    cap_u = (np.inf if cfg_unknown.storage_cap_frac is None
+             else float(np.ceil(cfg_unknown.storage_cap_frac * N / K)))
+    lam_rows, B = _pad_rows(np.repeat(_pad_cols(lam, bucket_cols(K)),
+                                      int(trials), axis=0))
+    sched = None
+    if rate_schedule is not None:
+        sched = torch.from_numpy(_pad_rows_like(
+            _schedule_rows(rate_schedule, G, K, trials),
+            lam_rows.shape[0])).to(dev)
+    gen = make_generator(_torch_seed(rng), dev)
+    out = run_panel(torch.from_numpy(lam_rows).to(dev), B, sched, gen,
+                    _rows_target, n0=float(N), threshold=float(threshold),
+                    cap_u=float(cap_u),
+                    max_iter=int(cfg_known.max_iterations),
+                    chunk=_panel_chunk())
+    out = out.cpu().numpy().astype(np.float64)
+    return {"known": (out[:, 0], out[:, 1], out[:, 2]),
+            "unknown": (out[:, 3], out[:, 4], out[:, 5])}
 
 
 # ---------------------------------------------------------------------------
@@ -543,6 +832,17 @@ register_backend(SamplerBackend(
     gamma_rows=gamma_rows_numpy))
 
 register_backend(SamplerBackend(
+    name="torch",
+    work_exchange_grid=work_exchange_grid_torch,
+    description="fluid-relaxation engine as torch ops on the device (MT "
+                "gamma + argmin + normal-limit binomial, float32, one "
+                "torch.Generator); statistically equivalent, not "
+                "bit-identical",
+    gamma_rows=gamma_rows_torch,
+    coupled_mds_sweep=True,
+    work_exchange_panel=work_exchange_panel_torch))
+
+register_backend(SamplerBackend(
     name="cuda",
     work_exchange_grid=work_exchange_grid_cuda,
     description="fused we_rounds CUDA kernel (counter-based Threefry bits "
@@ -554,9 +854,14 @@ register_backend(SamplerBackend(
 
 
 __all__ = [
-    "DEFAULT_BACKEND", "SAMPLER_BACKENDS", "SamplerBackend",
+    "ENV_VAR", "DEFAULT_BACKEND", "SAMPLER_BACKENDS", "SamplerBackend",
     "register_backend", "get_backend", "list_backends", "resolve_backend",
     "validate_backend", "get_gamma_rows", "bucket_cols", "bucket_rounds",
+    "grid_bucket_shape", "grid_devices", "grid_sharding",
+    "active_grid_mesh", "shard_devices", "run_shards", "shard_bounds",
+    "PANEL_CHUNK_ENV",
     "work_exchange_grid_numpy", "gamma_rows_numpy",
+    "work_exchange_grid_torch", "gamma_rows_torch",
+    "work_exchange_panel_torch",
     "work_exchange_grid_cuda", "gamma_rows_cuda", "work_exchange_panel_cuda",
 ]

@@ -24,7 +24,8 @@ device), and ``engine="loop"`` runs ``mc`` as a loop of it.  The
 host-side numpy draws of ``oracle``, ``fixed``, ``uniform`` and the
 per-trial loops are copied from the reference line for line, so their
 reports are bit-identical to it; MDS and work exchange draw through the
-sampler backend (``cuda`` by default, ``numpy`` for the exact engine).
+sampler backend (``cuda`` by default, ``torch`` for the fluid engine as
+torch ops, ``numpy`` for the exact engine).
 Every ``mc`` entry point takes ``device=`` (default ``"cuda"``, which
 raises without a card; ``"cpu"`` runs the plain PyTorch versions).
 
@@ -959,9 +960,10 @@ def mc_grid_panel(schemes: Dict[str, Scheme], het_specs: Sequence[HetSpec],
                   device=DEFAULT_DEVICE) -> Dict[str, List[MCReport]]:
     """A whole figure panel -- ordered ``report_key -> Scheme`` -- over the
     scenario grid, with the work-exchange known/unknown pair fused into
-    ONE kernel launch where the backend has a panel engine (``cuda``:
-    known rows stacked on unknown rows with a per-row flag).  Everything
-    else runs its own ``mc_grid``.
+    one engine call where the backend has a panel engine (``cuda``: ONE
+    kernel launch, known rows stacked on unknown rows with a per-row
+    flag; ``torch``: the coupled pair on common random numbers).
+    Everything else runs its own ``mc_grid``.
 
     ``rng`` is either one Generator (each scheme gets a child stream
     derived in input order, as in the reference) or a ``key -> Generator``

@@ -20,6 +20,10 @@
     # prove the cache: second run must be a content-address hit
     python -m repro_torch.experiments --demo quick --check-cache
 
+    # the fluid engine as torch ops, its rows split over every card
+    python -m repro_torch.experiments --demo quick --backend torch \
+        --devices auto
+
     # the schemes EXECUTED through the live control plane (asyncio
     # coordinator, workers, transports; the matmul payload on the device)
     python -m repro_torch.experiments --demo live
@@ -427,6 +431,9 @@ def _run(argv) -> int:
     ap.add_argument("--demo", help=f"built-in demo spec "
                                    f"({', '.join(DEMOS)})")
     ap.add_argument("--backend", help="override the sampler backend")
+    ap.add_argument("--devices", help="override the device count (int or "
+                                      "'auto'); torch and cuda split their "
+                                      "rows over that many cards")
     ap.add_argument("--trials", type=int, help="override the trial budget")
     ap.add_argument("--n", type=int, help="override N (work units)")
     ap.add_argument("--live", action="store_true",
@@ -456,6 +463,9 @@ def _run(argv) -> int:
     overrides = {}
     if args.backend:
         overrides["backend"] = args.backend
+    if args.devices:
+        overrides["devices"] = (args.devices if args.devices == "auto"
+                                else int(args.devices))
     if args.trials:
         overrides["trials"] = args.trials
     if args.n:

@@ -6,11 +6,16 @@ consults the content-addressed store, and -- on a miss or ``force`` --
 executes every scheme task through ``Scheme.mc_grid`` on the resolved
 sampler backend: on ``cuda`` the work-exchange tasks launch the
 ``we_rounds`` kernel on the card (its plain PyTorch version on the CPU),
-on ``numpy`` everything draws on the host, bit for bit the reference.
+on ``torch`` the fluid engine runs as torch ops on the device, on
+``numpy`` everything draws on the host, bit for bit the reference.
 ``device=`` (default ``"cuda"``, which raises without a card) is an
 execution argument, not a spec field, so it never enters the hash: the
 ``cuda`` kernel and its plain version are bitwise equal, and the
-``numpy`` engine runs on the host whatever the device.  A serving spec
+``numpy`` engine runs on the host whatever the device.  A plan with
+``devices > 1`` (``torch`` / ``cuda``) runs under
+``repro_torch.core.samplers.grid_sharding``: the grid calls split their
+rows over the first ``devices`` cards (or that many CPU shards when
+``device`` is the CPU), one stream per shard.  A serving spec
 runs every scheme task as a dispatch policy through the queueing engine
 its plan resolved (``repro_torch.serving``): ``numpy`` on the host, bit
 for bit the reference's, or ``torch`` on ``device``.  A live spec runs
@@ -24,6 +29,7 @@ the figure specs' numpy numbers the reference's stored ones bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import platform
 import time
@@ -32,6 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.samplers import grid_sharding
 from ..core.schemes import MCReport, get_scheme, mc_grid_panel
 from ..device import DEFAULT_DEVICE, resolve_device
 
@@ -154,44 +161,50 @@ def execute_plan(plan: Plan, device=DEFAULT_DEVICE) -> ExperimentResult:
     dev = resolve_device(device)
     spec = plan.spec
     t0 = time.perf_counter()
-    if spec.execution == "live":
-        reports = _execute_live(plan, dev)
-    elif spec.serving is not None:
-        reports = _execute_serving(plan, dev)
-    elif spec.training is not None:
-        reports = _execute_training(plan, dev)
-    elif spec.panel == "fused":
-        # fused whole-panel dispatch: the WE known/unknown pair becomes
-        # ONE engine call; every other task keeps its own per-task
-        # stream (the rng mapping), bit-identical to per_scheme
-        schemes = {t.key: get_scheme(t.scheme, **t.params_dict)
-                   for t in plan.tasks}
-        rngs = {t.key: np.random.default_rng(t.seed) for t in plan.tasks}
-        reports = mc_grid_panel(schemes, plan.het_specs, spec.N,
-                                spec.trials, rngs, backend=plan.backend,
-                                rate_schedule=plan.rate_schedules,
-                                device=dev)
-        if plan.rate_schedules is not None:
-            for key, sch in schemes.items():
-                if not sch.supports_rate_schedule:
-                    _stamp_nominal(reports[key])
-    else:
-        reports = {}
-        for task in plan.tasks:
-            scheme = get_scheme(task.scheme, **task.params_dict)
-            kwargs = {}
-            if (plan.rate_schedules is not None
-                    and scheme.supports_rate_schedule):
-                # drifting / trace-corpus scenarios: the exchange-round
-                # engines follow the schedule; single-shot schemes run
-                # at the nominal (round-0 / window-mean) rates
-                kwargs["rate_schedule"] = plan.rate_schedules
-            reports[task.key] = scheme.mc_grid(
-                plan.het_specs, spec.N, trials=spec.trials,
-                rng=np.random.default_rng(task.seed),
-                backend=plan.backend, device=dev, **kwargs)
-            if plan.rate_schedules is not None and not kwargs:
-                _stamp_nominal(reports[task.key])
+    # the plan's row split over ``devices`` of ``dev``'s type; live and
+    # training plans pin one device, so only batch and serving runs split
+    shard = (grid_sharding(plan.devices, device=dev) if plan.devices > 1
+             else contextlib.nullcontext())
+    with shard:
+        if spec.execution == "live":
+            reports = _execute_live(plan, dev)
+        elif spec.serving is not None:
+            reports = _execute_serving(plan, dev)
+        elif spec.training is not None:
+            reports = _execute_training(plan, dev)
+        elif spec.panel == "fused":
+            # fused whole-panel dispatch: the WE known/unknown pair becomes
+            # ONE engine call; every other task keeps its own per-task
+            # stream (the rng mapping), bit-identical to per_scheme
+            schemes = {t.key: get_scheme(t.scheme, **t.params_dict)
+                       for t in plan.tasks}
+            rngs = {t.key: np.random.default_rng(t.seed)
+                    for t in plan.tasks}
+            reports = mc_grid_panel(schemes, plan.het_specs, spec.N,
+                                    spec.trials, rngs, backend=plan.backend,
+                                    rate_schedule=plan.rate_schedules,
+                                    device=dev)
+            if plan.rate_schedules is not None:
+                for key, sch in schemes.items():
+                    if not sch.supports_rate_schedule:
+                        _stamp_nominal(reports[key])
+        else:
+            reports = {}
+            for task in plan.tasks:
+                scheme = get_scheme(task.scheme, **task.params_dict)
+                kwargs = {}
+                if (plan.rate_schedules is not None
+                        and scheme.supports_rate_schedule):
+                    # drifting / trace-corpus scenarios: the exchange-round
+                    # engines follow the schedule; single-shot schemes run
+                    # at the nominal (round-0 / window-mean) rates
+                    kwargs["rate_schedule"] = plan.rate_schedules
+                reports[task.key] = scheme.mc_grid(
+                    plan.het_specs, spec.N, trials=spec.trials,
+                    rng=np.random.default_rng(task.seed),
+                    backend=plan.backend, device=dev, **kwargs)
+                if plan.rate_schedules is not None and not kwargs:
+                    _stamp_nominal(reports[task.key])
     return ExperimentResult(spec=spec, spec_hash=plan.spec_hash,
                             reports=reports, env=_environment(dev),
                             wall_s=time.perf_counter() - t0)

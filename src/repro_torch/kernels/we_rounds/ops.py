@@ -2,17 +2,19 @@
 
 ``we_rounds_grid`` is what the ``cuda`` sampler backend calls: it pads the
 batch with copies of row 0 to a multiple of ``DEFAULT_BLOCK_B`` (counters
-are keyed by the global row id, so padding never alters real rows), moves
-the rows to ``device`` and dispatches by the tensor's device -- a CUDA
-tensor launches the hand-written kernel, a CPU tensor runs the plain
-PyTorch version.  Nothing falls back from one to the other.
+are keyed by the launch's row id, so padding never alters real rows),
+moves the rows to ``device`` and dispatches by the tensor's device -- a
+CUDA tensor launches the hand-written kernel, a CPU tensor runs the plain
+PyTorch version.  Nothing falls back from one to the other.  Given a
+``mesh`` of D devices it splits the rows into D blocks and launches once
+per block, each with its own seed pair (see ``we_rounds_grid``).
 
 ``gamma_rows_grid`` (the MDS L-sweep primitive) is plain torch on the
 device on both; the reference jits it as plain jnp too.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +56,8 @@ def _pad_rows(rows: Optional[np.ndarray], pad: int) -> Optional[np.ndarray]:
 def we_rounds_grid(lam_rows: np.ndarray, seed, *, n0: float,
                    threshold: float, cap: float, known, max_iter: int,
                    device=DEFAULT_DEVICE,
-                   rate_schedule: Optional[np.ndarray] = None
+                   rate_schedule: Optional[np.ndarray] = None,
+                   mesh: Optional[Sequence[torch.device]] = None
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Fused round pipeline over ``(B, K)`` rate rows -> per-row
     ``(t_comp, iterations, n_comm)`` float64 numpy arrays.
@@ -65,6 +68,14 @@ def we_rounds_grid(lam_rows: np.ndarray, seed, *, n0: float,
     rows are uncapped).  ``rate_schedule`` (optional ``(B, R, K)``,
     row-aligned with ``lam_rows``) is the drifting-scenario per-round
     schedule.
+
+    ``mesh`` (D devices, from ``grid_sharding``) splits the rows: padded
+    with copies of row 0 to a multiple of D, cut into D blocks of
+    ``ceil(B / D)`` rows, and block ``d`` launched on ``mesh[d]`` with
+    seed row ``d`` of a ``(D, 2)`` ``seed`` and its own row counters from
+    0 -- the layout of the reference's sharded run on the CPU, so the
+    rows agree with it as the unsplit rows do.  Every block is launched
+    before any is read back.
     """
     dev = resolve_device(device)
     lam_rows = np.asarray(lam_rows, dtype=np.float32)
@@ -84,19 +95,25 @@ def we_rounds_grid(lam_rows: np.ndarray, seed, *, n0: float,
             raise ValueError(f"per-row known flags must have one entry per "
                              f"row (B={B}); got {flags.shape[0]}")
         known = False
-    seed_pair = [int(s) for s in np.asarray(seed, dtype=np.uint32).reshape(2)]
-    pad = (-B) % DEFAULT_BLOCK_B
-    lam_rows, sched, flags = (_pad_rows(a, pad) for a in (lam_rows, sched,
-                                                          flags))
-
-    def to_dev(a):
-        return None if a is None else torch.from_numpy(a).to(dev)
-
-    out = we_rounds(to_dev(lam_rows), seed_pair, to_dev(sched),
-                    to_dev(flags), n0=float(n0), threshold=float(threshold),
-                    cap=float(cap), known=bool(known),
-                    max_iter=int(max_iter))
-    out = out.cpu().numpy().astype(np.float64)[:B]
+    kw = dict(n0=float(n0), threshold=float(threshold), cap=float(cap),
+              known=bool(known), max_iter=int(max_iter))
+    mesh = (dev,) if mesh is None else tuple(mesh)
+    D = len(mesh)
+    seeds = np.asarray(seed, dtype=np.uint32).reshape(D, 2)
+    per = -(-B // D)
+    lam_rows, sched, flags = (_pad_rows(a, D * per - B)
+                              for a in (lam_rows, sched, flags))
+    outs = []
+    for d, shard_dev in enumerate(mesh):
+        lo, hi = d * per, (d + 1) * per
+        pad = (-per) % DEFAULT_BLOCK_B
+        part = [None if a is None else
+                torch.from_numpy(_pad_rows(a[lo:hi], pad)).to(shard_dev)
+                for a in (lam_rows, sched, flags)]
+        outs.append(we_rounds(part[0], [int(s) for s in seeds[d]], part[1],
+                              part[2], **kw))
+    out = np.concatenate([o.cpu().numpy()[:per] for o in outs])
+    out = out.astype(np.float64)[:B]
     return out[:, 0], out[:, 1], out[:, 2]
 
 

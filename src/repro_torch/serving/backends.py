@@ -45,8 +45,9 @@ class ServingBackend:
     """One queueing engine: ``sweep(het, scheme_name, params, cfg, N,
     trials, seed, grid_index, rate_schedule, device)`` -> ``[MCReport]``,
     one per load in ``cfg.loads`` order.  ``shards`` marks engines that
-    split the stacked (load x trial) rows over several devices: none
-    yet (ROADMAP.md, Queue 1 item 12)."""
+    split the stacked (load x trial) rows over the devices of an active
+    ``grid_sharding`` (so ``compile_plan`` may lift the serving
+    ``devices=1`` pin)."""
 
     name: str
     sweep: Callable[..., List]
@@ -131,5 +132,6 @@ register_serving_backend(ServingBackend(
 register_serving_backend(ServingBackend(
     name="torch",
     sweep=_torch_sweep,
-    description="slot-step loop of torch ops on one device; loads batched "
-                "as rows, shape-bucketed"))
+    description="slot-step loop of torch ops on the device; loads batched "
+                "as rows, shape-bucketed, rows split under grid_sharding",
+    shards=True))

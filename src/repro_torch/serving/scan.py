@@ -66,6 +66,13 @@ sweep, which here would run a device request on the host.  Closed-loop
 arrivals raise ``ValueError`` (the resubmission ring needs per-slot
 completions on the host).
 
+Inside ``repro_torch.core.samplers.grid_sharding`` the padded rows are
+made a multiple of D and cut into D blocks, each looped on its own
+device with its own generator seed (one ``default_rng([seed, g,
+2**31])`` draw of D seeds, as the reference's sharded ``lax.scan`` draws
+one stream per device); the host draws stay whole.  With one device the
+sweep is the unsplit one.
+
 Correctness contract: the int32 conservation ledger is carried through
 the loop and the exact identity (shipped == served + cancelled +
 backlog) is asserted on the final ledger of every row.
@@ -78,10 +85,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.samplers import bucket_cols
+from ..core.samplers import bucket_cols, run_shards, shard_bounds, \
+    shard_devices
 from ..core.schemes import MCReport
 from ..core.types import HetSpec
-from ..device import DEFAULT_DEVICE, resolve_device
+from ..device import DEFAULT_DEVICE
 
 from .config import AUTO_SLOTS_PER_JOB, ServingConfig
 from .policies import (CoverPolicy, ExchangePolicy, ExchangeUnknownPolicy,
@@ -516,7 +524,7 @@ def _run_rows(policy, pol: _Policy, counts_T: np.ndarray, caps: np.ndarray,
 
 def _setup(het: HetSpec, scheme_name: str, params, cfg: ServingConfig,
            N: int, trials: int, seed: int, grid_index: int,
-           rate_schedule, dev: torch.device):
+           rate_schedule, D: int):
     policy = dispatch_policy(scheme_name, dict(params or {}), het, N)
     arrival = cfg.build_arrival()
     if arrival.closed_loop:
@@ -546,6 +554,7 @@ def _setup(het: HetSpec, scheme_name: str, params, cfg: ServingConfig,
     Kb = bucket_cols(K) if buckets else K
     B0 = L * T
     Bb = _pow2(B0, floor=8) if buckets else B0
+    Bb = -(-Bb // D) * D                    # device-divisible rows
 
     # arrivals: each load keeps its own default_rng([seed, g, li]) stream
     # (the engine seed discipline -- cells are independent of the sweep)
@@ -574,8 +583,8 @@ def _setup(het: HetSpec, scheme_name: str, params, cfg: ServingConfig,
 
     rng_dev = np.random.default_rng(
         [int(seed) & (2 ** 63 - 1), int(grid_index), 2 ** 31])
-    dev_seed = int(rng_dev.integers(0, 2 ** 32, size=(1,),
-                                    dtype=np.uint32)[0])
+    dev_seeds = [int(x) for x in rng_dev.integers(0, 2 ** 32, size=(D,),
+                                                  dtype=np.uint32)]
 
     # per-(slot, row, worker) Poisson service budgets: iid given the rate
     # schedule, so drawn up front on the host (padded slots and workers
@@ -587,8 +596,10 @@ def _setup(het: HetSpec, scheme_name: str, params, cfg: ServingConfig,
         * live[:, None, None], size=(Sb, Bb, Kb)).astype(np.int32)
 
     redundancy = float(getattr(policy.scheme, "redundancy", 0.0) or 0.0)
-    col_mask_f = (torch.arange(Kb, device=dev) < K).to(F32)
-    pol = _Policy(kind, pargs, Kb, col_mask_f, redundancy, dev)
+
+    def make_pol(dev: torch.device) -> _Policy:
+        col_mask_f = (torch.arange(Kb, device=dev) < K).to(F32)
+        return _Policy(kind, pargs, Kb, col_mask_f, redundancy, dev)
     scal = {"dt": _f32(dt),
             "deadline_t": _f32(np.inf if deadline_t is None
                                else deadline_t),
@@ -596,8 +607,8 @@ def _setup(het: HetSpec, scheme_name: str, params, cfg: ServingConfig,
             "q_cap": int(cfg.max_queue_jobs), "lam_pad": lam_pad,
             "admission": str(cfg.admission),
             "units_dist": str(cfg.job_units_dist)}
-    meta = dict(policy=policy, pol=pol, counts=counts, caps=caps,
-                dev_seed=dev_seed, scal=scal, T=T, S=S, Sb=Sb, Qb=Qb,
+    meta = dict(policy=policy, make_pol=make_pol, counts=counts, caps=caps,
+                dev_seeds=dev_seeds, scal=scal, T=T, S=S, Sb=Sb, Qb=Qb,
                 B0=B0, buckets=buckets, dt=dt, deadline_t=deadline_t,
                 loads=loads, lam_sum=lam_sum,
                 warm=int(float(cfg.warmup_frac) * S),
@@ -618,42 +629,59 @@ def sweep_rows(het: HetSpec, scheme_name: str,
     trials`` real rows (loads major), ``meta`` the sweep's constants and
     ``passes`` (1, or 2 when the tier splice reran rows) and
     ``rows_rerun``."""
-    dev = resolve_device(device)
+    mesh = shard_devices(device)
+    D = len(mesh)
     m = _setup(het, scheme_name, params, cfg, N, trials, seed, grid_index,
-               rate_schedule, dev)
+               rate_schedule, D)
     counts_T = np.ascontiguousarray(m["counts"].T)
     caps, B0 = m["caps"], m["B0"]
 
-    def dispatch(Q_phys, counts_x, caps_x):
-        with torch.inference_mode():
-            return _run_rows(m["policy"], m["pol"], counts_x, caps_x,
-                             Q_phys, m["S"], m["warm"], m["every"],
-                             m["scal"], m["N"], m["dev_seed"], dev)
+    def run_block(bdev, counts_b, caps_b, dev_seed, n_real):
+        """The sweep of one block of rows (its first ``n_real`` real) on
+        ``bdev``: ``(out, passes, rows_rerun)``."""
+        pol = m["make_pol"](bdev)
 
-    # Q-tiering: run everything at _TIER_Q rows, then rerun exactly the
-    # rows whose ``over`` flag shows the admitted prefix outgrew them.
-    # Fixed-units rows draw nothing on the device and are independent, so
-    # the splice is bit-identical to one full-width run.  Geometric sizes
-    # draw per-(slot, row) uniforms, so row subsets would shift their
-    # streams -- no tiering.
-    use_tier = (m["scal"]["units_dist"] == "fixed" and m["buckets"]
-                and m["Qb"] > _TIER_Q and dev.type in _TIER_DEVICES)
-    passes, rerun = 1, 0
-    if use_tier:
-        out = dispatch(_TIER_Q, counts_T, caps)
-        rows = np.nonzero(out["over"][:B0])[0]
-        if rows.size:
-            passes, rerun = 2, int(rows.size)
-            B2b = _pow2(rerun, floor=8)
-            c2 = np.zeros((m["Sb"], B2b), np.int32)
-            c2[:, :rerun] = counts_T[:, rows]
-            k2 = np.zeros((m["Sb"], B2b, caps.shape[2]), np.int32)
-            k2[:, :rerun] = caps[:, rows, :]
-            out2 = dispatch(m["Qb"], c2, k2)
-            for key in out:
-                out[key][rows] = out2[key][:rerun]
-    else:
-        out = dispatch(m["Qb"], counts_T, caps)
+        def dispatch(Q_phys, counts_x, caps_x):
+            with torch.inference_mode():
+                return _run_rows(m["policy"], pol, counts_x, caps_x,
+                                 Q_phys, m["S"], m["warm"], m["every"],
+                                 m["scal"], m["N"], dev_seed, bdev)
+
+        # Q-tiering: run everything at _TIER_Q rows, then rerun exactly
+        # the rows whose ``over`` flag shows the admitted prefix outgrew
+        # them.  Fixed-units rows draw nothing on the device and are
+        # independent, so the splice is bit-identical to one full-width
+        # run.  Geometric sizes draw per-(slot, row) uniforms, so row
+        # subsets would shift their streams -- no tiering.
+        use_tier = (m["scal"]["units_dist"] == "fixed" and m["buckets"]
+                    and m["Qb"] > _TIER_Q and bdev.type in _TIER_DEVICES)
+        if not use_tier:
+            return dispatch(m["Qb"], counts_b, caps_b), 1, 0
+        out = dispatch(_TIER_Q, counts_b, caps_b)
+        rows = np.nonzero(out["over"][:n_real])[0]
+        if rows.size == 0:
+            return out, 1, 0
+        rerun = int(rows.size)
+        B2b = _pow2(rerun, floor=8)
+        c2 = np.zeros((m["Sb"], B2b), np.int32)
+        c2[:, :rerun] = counts_b[:, rows]
+        k2 = np.zeros((m["Sb"], B2b, caps_b.shape[2]), np.int32)
+        k2[:, :rerun] = caps_b[:, rows, :]
+        out2 = dispatch(m["Qb"], c2, k2)
+        for key in out:
+            out[key][rows] = out2[key][:rerun]
+        return out, 2, rerun
+
+    blocks = run_shards(run_block, mesh, [
+        (np.ascontiguousarray(counts_T[:, lo:hi]),
+         np.ascontiguousarray(caps[:, lo:hi]), s,
+         min(max(B0 - lo, 0), hi - lo))
+        for (lo, hi), s in zip(shard_bounds(counts_T.shape[1], D),
+                               m["dev_seeds"])])
+    out = {k: np.concatenate([b[0][k] for b in blocks])
+           for k in blocks[0][0]}
+    passes = max(b[1] for b in blocks)
+    rerun = sum(b[2] for b in blocks)
     out = {k: v[:B0] for k, v in out.items() if k != "over"}
 
     # exact conservation identity on the final ledger

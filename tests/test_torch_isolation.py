@@ -82,9 +82,13 @@ def test_source_imports_no_jax_and_no_repro():
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro"), (path, mod)
-    root_script = PKG.parents[1] / "chip_smoke.py"
-    for mod in _imported_modules(root_script):
-        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+    root = PKG.parents[1]
+    examples = sorted((root / "examples").glob("torch_*.py"))
+    assert len(examples) == 3
+    for script in [root / "chip_smoke.py", *examples]:
+        for mod in _imported_modules(script):
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                (script, mod)
 
 
 def test_default_device_raises_without_a_card():
@@ -222,4 +226,54 @@ def test_experiment_layer_runs_with_jax_and_repro_blocked(tmp_path):
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "check-cache: OK" in res.stdout
+    assert res.stdout.splitlines()[-1].startswith("ok")
+
+
+def test_torch_backend_and_row_split_run_with_jax_and_repro_blocked(
+        tmp_path):
+    """The ``torch`` sampler backend (grid, panel, MDS sweep), the row
+    split of ``grid_sharding`` on both fluid backends and the serving
+    engine, and a ``--devices`` run of the experiment CLI import and run
+    on the CPU where importing ``jax`` or ``repro`` fails (the examples'
+    run is ``test_torch_examples.py``'s)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.core import HetSpec, get_scheme, mc_grid_panel\n"
+        "from repro_torch.core.samplers import grid_sharding\n"
+        "from repro_torch.serving import ServingConfig, run_serving_grid\n"
+        "rng = np.random.default_rng(0)\n"
+        "het = HetSpec.uniform_random(8, 20.0, 20.0**2 / 6, rng)\n"
+        "for name in ('work_exchange_unknown', 'mds'):\n"
+        "    r = get_scheme(name).mc(het, 5000, 16, rng, backend='torch', "
+        "device='cpu')\n"
+        "    assert np.isfinite(r.t_comp) and r.extra['backend'] == 'torch'\n"
+        "p = mc_grid_panel({n: get_scheme(n) for n in ('work_exchange', "
+        "'work_exchange_unknown')}, [het], 5000, 16, rng, backend='torch', "
+        "device='cpu')\n"
+        "assert p['work_exchange'][0].extra['fused_panel'] == 1\n"
+        "with grid_sharding(2, device='cpu'):\n"
+        "    for b in ('torch', 'cuda'):\n"
+        "        r = get_scheme('work_exchange').mc(het, 5000, 16, rng, "
+        "backend=b, device='cpu')\n"
+        "        assert np.isfinite(r.t_comp)\n"
+        "    sv = run_serving_grid('work_exchange', {}, [het], ServingConfig("
+        "loads=(0.6,), slots=60), 10, 2, 0, backend='torch', "
+        "device='cpu')[0]\n"
+        "    assert sv.extra['serving_backend'] == 'torch'\n"
+        "from repro_torch.experiments.__main__ import main\n"
+        f"assert main(['--demo', 'quick', '--backend', 'torch', '--devices', "
+        f"'2', '--trials', '4', '--device', 'cpu', '--store', "
+        f"{str(tmp_path)!r}, "
+        f"'--force']) == 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+        "for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok', r.t_comp)\n")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "devices=1" in res.stdout
     assert res.stdout.splitlines()[-1].startswith("ok")

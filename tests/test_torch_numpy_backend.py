@@ -142,7 +142,7 @@ def test_numpy_backend_is_registered_as_the_reference_registers_it():
     b = samplers.get_backend("numpy")
     assert b.work_exchange_panel is None and not b.coupled_mds_sweep
     assert samplers.DEFAULT_BACKEND == "cuda"
-    assert sorted(samplers.list_backends()) == ["cuda", "numpy"]
+    assert sorted(samplers.list_backends()) == ["cuda", "numpy", "torch"]
     with pytest.raises(ValueError, match="waterfill"):
         get_scheme("we_unknown", capped_mode="waterfill").mc(
             port_specs(1)[0], N, 4, RNG(0), backend="cuda", device="cpu")

@@ -171,10 +171,10 @@ def test_plan_matches_reference(name):
 
 
 def test_later_slices_raise_not_implemented():
-    """What the port has not taken yet raises: the reference's ``jax``
-    backend and the ``torch`` backend that takes its role (ROADMAP.md,
-    Queue 1 item 5) are not registered, so naming either raises the
-    registry's ``KeyError`` listing what is.  The three scenario schemes,
+    """What the port has not taken raises: the reference's ``jax``
+    backend is not registered (the port's ``torch`` backend takes its
+    role), so naming it raises the registry's ``KeyError`` listing what
+    is, and ``torch`` resolves.  The three scenario schemes,
     ``HetTrainer``'s trace corpora, the serving axis and, since the live
     control plane was ported, the live axis no longer raise: a live spec
     builds (``execution="live"`` fills in the default ``LiveConfig``) and
@@ -204,9 +204,9 @@ def test_later_slices_raise_not_implemented():
     served = ExperimentSpec.from_dict({**ExperimentSpec(**base).to_dict(),
                                        "serving": {"loads": [0.5]}})
     assert served.serving.loads == (0.5,)
-    for name in ("jax", "torch"):
-        with pytest.raises(KeyError, match="cuda.*numpy|numpy.*cuda"):
-            resolve_backend(name)
+    with pytest.raises(KeyError, match="cuda.*numpy|numpy.*cuda"):
+        resolve_backend("jax")
+    assert resolve_backend("torch") == "torch"
 
 
 def test_unknown_backend_and_scheme_fail_fast():
