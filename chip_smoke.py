@@ -570,9 +570,9 @@ LAUNCH_STEPS, LAUNCH_FIRST = 4, 2
 # shards of the cuda and torch splits and of the serving split (all on
 # card 0); the split's trials where its plain version runs on the CPU
 # (1000 rows: the plain Threefry on the host is slow at paper scale); the
-# examples, their arguments (small step counts) and the lines a healthy
-# run prints
-SPLIT_D, SERVE_SPLIT_D, SPLIT_CPU_TRIALS = 4, 2, 125
+# trials of the serving split with geometric job sizes; the examples,
+# their arguments (small step counts) and the lines a healthy run prints
+SPLIT_D, SERVE_SPLIT_D, SPLIT_CPU_TRIALS, GEO_SPLIT_TRIALS = 4, 2, 125, 64
 EXAMPLES = (
     ("torch_quickstart.py", ("--steps", "4"),
      ("oracle lower bound", "work exchange", "cache HIT")),
@@ -5044,10 +5044,40 @@ def card_line() -> str:
     return smi.stdout.strip()
 
 
+def mesh_label(mesh) -> str:
+    return ("cuda:0 x " + str(len(mesh)) if len(set(mesh)) == 1
+            else ", ".join(str(d) for d in mesh))
+
+
 def split_rows(reports) -> np.ndarray:
     """A grid's per-trial ``[t_comp, iterations, n_comm]`` rows."""
     return np.concatenate([np.stack([r.t_comp_trials, r.iterations_trials,
                                      r.n_comm_trials], 1) for r in reports])
+
+
+def split_grid(dev, devices, specs, trials: int, backend: str, seed: int):
+    """Figure 5's ``work_exchange_unknown`` grid at paper scale under
+    ``grid_sharding(devices)``, its trials kept."""
+    from repro_torch.core import get_scheme
+    from repro_torch.core.samplers import grid_sharding
+    with grid_sharding(devices, device=dev):
+        return get_scheme("work_exchange_unknown").mc_grid(
+            specs, N_PAPER, trials, np.random.default_rng(seed),
+            keep_trials=True, backend=backend, device=dev)
+
+
+def geo_serving(dev, devices, specs) -> list:
+    """The fig-load point's ``work_exchange`` sweep on the torch serving
+    engine with geometric job sizes (one generator stream a shard) under
+    ``grid_sharding(devices)``: its reports."""
+    from repro_torch.core.samplers import grid_sharding
+    from repro_torch.serving import ServingConfig, run_serving_grid
+    cfg = ServingConfig(loads=FIG_LOAD_LOADS_QUICK, slots=400,
+                        deadline_slo=FIG_LOAD_SLO, job_units_dist="geometric",
+                        backend="torch")
+    with grid_sharding(devices, device=dev):
+        return run_serving_grid("work_exchange", {}, specs, cfg, FIG_LOAD_N,
+                                GEO_SPLIT_TRIALS, 17, device=dev)
 
 
 def split_checks(torch, dev, mesh, specs, exact, card) -> tuple:
@@ -5056,28 +5086,24 @@ def split_checks(torch, dev, mesh, specs, exact, card) -> tuple:
     and within phase 3's row tolerance of the same split run by its plain
     version on the CPU), the ``torch`` split (seed-deterministic, within 6
     SE of phase 20's numpy panel) and the serving split over the first
-    ``SERVE_SPLIT_D`` devices (a quick fig-load study bitwise the unsplit
-    one and within phase 24's bands of the stored numpy entry).  Returns
-    (problems, the row split's ``we_rounds`` entry)."""
+    ``SERVE_SPLIT_D`` devices (a quick fig-load study, whose fixed job
+    sizes draw nothing on the device, bitwise the unsplit one and within
+    phase 24's bands of the stored numpy entry; and a sweep with geometric
+    job sizes, one generator stream a shard, seed-deterministic and within
+    6 combined SE of the unsplit sweep).  Returns (problems, the row
+    split's ``we_rounds`` entry)."""
     import repro_torch.experiments as ex
-    from repro_torch.core import get_scheme
     from repro_torch.core.samplers import grid_sharding
     from repro_torch.kernels.we_rounds import kernel as wk
     from repro_torch.kernels.we_rounds import ops as wops
     from repro_torch.kernels.we_rounds import ref as wref
     from repro_torch.serving import scan
     problems = []
-    label = ("cuda:0 x " + str(len(mesh)) if len(set(mesh)) == 1
-             else ", ".join(str(d) for d in mesh))
+    label = mesh_label(mesh)
     name = "work_exchange_unknown"
-    scheme = get_scheme(name)
 
     def run(device, devices, trials, backend, seed):
-        with grid_sharding(devices, device=device):
-            return scheme.mc_grid(specs, N_PAPER, trials,
-                                  np.random.default_rng(seed),
-                                  keep_trials=True, backend=backend,
-                                  device=device)
+        return split_grid(device, devices, specs, trials, backend, seed)
 
     wk.reset_launch_counts()
     with recorded_calls(wops, "we_rounds_cuda") as calls:
@@ -5152,7 +5178,61 @@ def split_checks(torch, dev, mesh, specs, exact, card) -> tuple:
     if not equal:
         problems.append("serving split: reports differ from the unsplit run")
     problems += [f"serving split: {p}" for p in bad]
+
+    def serve(devices):
+        return geo_serving(dev, devices, spec_t.grid.specs())
+
+    whole = serve(1)
+    t0 = time.perf_counter()
+    a = serve(serve_mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = [r.to_dict() for r in a] == [r.to_dict() for r in serve(serve_mesh)]
+    gaps = [abs(x.t_comp - y.t_comp) * np.sqrt(GEO_SPLIT_TRIALS)
+            / np.hypot(x.t_comp_std, y.t_comp_std) for x, y in zip(whole, a)]
+    print(f"  (c) serving split over {', '.join(map(str, serve_mesh))} with "
+          f"geometric job sizes (work_exchange, {len(a)} loads x "
+          f"{GEO_SPLIT_TRIALS} trials): {wall:.3f} s ({card}); same seed "
+          f"twice bitwise {same}; against the unsplit sweep t_comp worst "
+          f"{max(gaps):.3f} combined SE")
+    if not same or not max(gaps) < MEAN_SE:
+        problems.append(f"geometric serving split: deterministic {same}, "
+                        f"gaps {[round(float(g), 2) for g in gaps]}")
     return problems, entry
+
+
+def distinct_card_checks(torch, ex, dev, one, many, specs, card) -> list:
+    """Phase 28 (c) where there are several cards: the ``cuda`` and
+    ``torch`` splits over the distinct cards ``many`` and the geometric
+    serving split over the first ``SERVE_SPLIT_D`` of them give the bits
+    of the same shards on card 0 (``one``); prints the warm walls of both,
+    the shards run one after another.  Returns the problems."""
+    problems = []
+    serve_specs = fig_load_experiment(ex, "stationary", True).grid.specs()
+    pairs = [(f"{b} split", lambda m, b=b: split_rows(
+        split_grid(dev, m, specs, TRIALS, b, 28)), one, many)
+             for b in ("cuda", "torch")]
+    pairs.append(("geometric serving split", lambda m: [
+        r.to_dict() for r in geo_serving(dev, m, serve_specs)],
+        one[:SERVE_SPLIT_D], many[:SERVE_SPLIT_D]))
+    for what, go, a, b in pairs:
+        got, walls = {}, {}
+        for m in (a, b):
+            go(m)
+            t0 = time.perf_counter()
+            got[m] = go(m)
+            torch.cuda.synchronize()
+            walls[m] = time.perf_counter() - t0
+        same = (np.array_equal(got[a], got[b])
+                if isinstance(got[a], np.ndarray) else got[a] == got[b])
+        print(f"  (c) {what} over {mesh_label(b)}: the bits of the same "
+              f"shards on card 0 {same}; warm {walls[b] * 1e3:.3f} ms "
+              f"against {walls[a] * 1e3:.3f} ms on card 0, the shards one "
+              f"after another ({card})")
+        if not same:
+            problems.append(f"{what} over {mesh_label(b)}: not the bits of "
+                            f"card 0's shards")
+    return problems
 
 
 def fluid_phase(torch, dev, points, specs, exact, cuda_wall: float) -> list:
@@ -5162,10 +5242,10 @@ def fluid_phase(torch, dev, points, specs, exact, cuda_wall: float) -> list:
     seed twice the same report, the panel's warm wall beside phase 5's
     ``cuda`` wall, the device's busy share and the host reads a round;
     (b) the ``drifting`` demo spec on ``torch`` against ``numpy``; (c)
-    ``split_checks`` over 4 shards of card 0 (and over distinct cards
-    where there are several); (d) the three examples with ``--device
-    cuda`` in background processes beside (b) and (c).  Returns the row
-    split's ``we_rounds`` entries."""
+    ``split_checks`` over 4 shards of card 0 (and, where there are
+    several cards, over distinct cards and ``distinct_card_checks``); (d) the three examples with ``--device
+    cuda``, side by side, once every timed part has had the card to
+    itself.  Returns the row split's ``we_rounds`` entries."""
     import repro_torch.experiments as ex
     from repro_torch.core import fluid, get_scheme, mc_grid_panel
     from repro_torch.core.samplers import grid_devices
@@ -5175,67 +5255,40 @@ def fluid_phase(torch, dev, points, specs, exact, cuda_wall: float) -> list:
           f"({card})")
     t_phase = time.perf_counter()
     problems, entries = [], []
-    env = {**os.environ, "PYTHONPATH": str(SRC)}
-    procs = {}
-    try:
-        for script, args, _ in EXAMPLES:
-            procs[script] = (time.perf_counter(), subprocess.Popen(
-                [sys.executable, f"examples/{script}", "--device", dev.type,
-                 *args], cwd=ROOT, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True, env=env))
+    # (c) the row split
+    meshes = [(dev,) * SPLIT_D]
+    if torch.cuda.device_count() > 1:
+        meshes.append(grid_devices(SPLIT_D, dev))
+        print(f"  {torch.cuda.device_count()} cards: (c) runs again "
+              f"over {', '.join(map(str, meshes[1]))}")
+    for mesh in meshes:
+        bad, entry = split_checks(torch, dev, mesh, specs, exact, card)
+        problems += bad
+        entries.append(entry)
+    if len(meshes) > 1:
+        problems += distinct_card_checks(torch, ex, dev, *meshes, specs, card)
 
-        # (c) the row split
-        meshes = [(dev,) * SPLIT_D]
-        if torch.cuda.device_count() > 1:
-            meshes.append(grid_devices(SPLIT_D, dev))
-            print(f"  {torch.cuda.device_count()} cards: (c) runs again "
-                  f"over {', '.join(map(str, meshes[1]))}")
-        for mesh in meshes:
-            bad, entry = split_checks(torch, dev, mesh, specs, exact, card)
-            problems += bad
-            entries.append(entry)
+    # (b) one drifting spec on torch against numpy
+    spec = demo_spec("drifting").replace(trials=TRIALS)
+    t0 = time.perf_counter()
+    fl = ex.run_experiment(spec.replace(backend="torch"), device=dev)
+    torch.cuda.synchronize()
+    fl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    npy = ex.run_experiment(spec.replace(backend="numpy"), device=dev)
+    np_s = time.perf_counter() - t0
+    gaps = {(k, g): mean_gap(a, b) for k in fl.keys()
+            for g, (a, b) in enumerate(zip(fl.report(k),
+                                           npy.report(k)))}
+    worst = max(gp for gp, _ in gaps.values())
+    print(f"  (b) {spec.name} ({len(spec.schemes)} schemes x "
+          f"{len(spec.grid)} points x {spec.trials} trials): torch on "
+          f"the card {fl_s:.3f} s ({card}), numpy {np_s:.3f} s; torch "
+          f"against numpy worst {worst:.3f} SE")
+    problems += [f"drifting {k}[{g}] {gp:.2f} SE from numpy"
+                 for (k, g), (gp, ok) in gaps.items() if not ok]
 
-        # (b) one drifting spec on torch against numpy
-        spec = demo_spec("drifting").replace(trials=TRIALS)
-        t0 = time.perf_counter()
-        fl = ex.run_experiment(spec.replace(backend="torch"), device=dev)
-        torch.cuda.synchronize()
-        fl_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        npy = ex.run_experiment(spec.replace(backend="numpy"), device=dev)
-        np_s = time.perf_counter() - t0
-        gaps = {(k, g): mean_gap(a, b) for k in fl.keys()
-                for g, (a, b) in enumerate(zip(fl.report(k),
-                                               npy.report(k)))}
-        worst = max(gp for gp, _ in gaps.values())
-        print(f"  (b) {spec.name} ({len(spec.schemes)} schemes x "
-              f"{len(spec.grid)} points x {spec.trials} trials): torch on "
-              f"the card {fl_s:.3f} s ({card}), numpy {np_s:.3f} s; torch "
-              f"against numpy worst {worst:.3f} SE")
-        problems += [f"drifting {k}[{g}] {gp:.2f} SE from numpy"
-                     for (k, g), (gp, ok) in gaps.items() if not ok]
-
-        # (d) the examples
-        for script, _, lines in EXAMPLES:
-            t0, proc = procs[script]
-            out, err = proc.communicate(timeout=600)
-            missing = [x for x in lines if x not in out]
-            tail = (out.strip().splitlines() or [err.strip()])[-1]
-            print(f"  (d) examples/{script} --device {dev.type}: exit "
-                  f"{proc.returncode} in {time.perf_counter() - t0:.1f} s "
-                  f"({card}, beside (b) and (c)); healthy lines "
-                  f"{len(lines) - len(missing)}/{len(lines)}; last: "
-                  f"{tail[:90]}")
-            if proc.returncode != 0 or missing:
-                problems.append(f"examples/{script}: exit {proc.returncode}"
-                                f", missing {missing}: {err.strip()[-300:]}")
-    finally:
-        for _, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-
-    # (a) the torch backend at paper scale, alone
+    # (a) the torch backend at paper scale
     schemes = {n: get_scheme(n) for n in SCHEMES}
 
     def run_panel():
@@ -5292,6 +5345,33 @@ def fluid_phase(torch, dev, points, specs, exact, cuda_wall: float) -> list:
           + (f"device busy {dev_us / 1e3:.3f} ms ({share:.2f}% of wall)"
              if dev_us > 0 else "the profiler recorded no device time "
              "(busy share not measured)") + f" ({card})")
+    # (d) the examples, side by side, after every timed part
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    procs = {}
+    try:
+        for script, args, _ in EXAMPLES:
+            procs[script] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, f"examples/{script}", "--device", dev.type,
+                 *args], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env))
+        for script, _, lines in EXAMPLES:
+            t0, proc = procs[script]
+            out, err = proc.communicate(timeout=600)
+            missing = [x for x in lines if x not in out]
+            tail = (out.strip().splitlines() or [err.strip()])[-1]
+            print(f"  (d) examples/{script} --device {dev.type}: exit "
+                  f"{proc.returncode} in {time.perf_counter() - t0:.1f} s "
+                  f"({card}, the three side by side); healthy lines "
+                  f"{len(lines) - len(missing)}/{len(lines)}; last: "
+                  f"{tail[:90]}")
+            if proc.returncode != 0 or missing:
+                problems.append(f"examples/{script}: exit {proc.returncode}"
+                                f", missing {missing}: {err.strip()[-300:]}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s")
     if problems:
         fail("phase 28: " + "; ".join(problems[:12]))

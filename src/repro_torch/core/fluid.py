@@ -118,14 +118,19 @@ def gamma_mt(gen: torch.Generator, alpha: torch.Tensor,
     return _boosted(z, _log_uniform(3, alpha.shape, gen), alpha, inv_rate)
 
 
+def _binomial(n: torch.Tensor, p: torch.Tensor,
+              z: torch.Tensor) -> torch.Tensor:
+    """Binomial(n, p) in its mean/variance-exact normal limit off the
+    standard normals ``z``, clipped to ``[0, n]``."""
+    std = torch.sqrt(torch.clamp_min(n * p * (1.0 - p), 0.0))
+    return torch.minimum(torch.clamp_min(n * p + z * std, 0.0), n)
+
+
 def binomial_normal(gen: torch.Generator, n: torch.Tensor,
                     p: torch.Tensor) -> torch.Tensor:
     """Binomial(n, p) in its mean/variance-exact normal limit, clipped to
     ``[0, n]``."""
-    mean = n * p
-    std = torch.sqrt(torch.clamp_min(n * p * (1.0 - p), 0.0))
-    return torch.minimum(torch.clamp_min(mean + _normal(n.shape, gen) * std,
-                                         0.0), n)
+    return _binomial(n, p, _normal(n.shape, gen))
 
 
 def _tiered(gen: torch.Generator, alpha: torch.Tensor, inv_rate,
@@ -146,6 +151,41 @@ def _round_read(live: torch.Tensor, active: torch.Tensor
         [live.amin(), active.any().to(F32)])).tolist()
     HOST_READS["rounds"] += 1
     return live_min, bool(any_active)
+
+
+def _advance(s: Dict[str, torch.Tensor], assign: torch.Tensor,
+             busy: torch.Tensor, t_raw: torch.Tensor, z: torch.Tensor,
+             prior: torch.Tensor, threshold: float, max_iter: int) -> None:
+    """One exchange round of one scheme on its state ``s`` (``n_rem``,
+    ``n_left``, ``t_comp``, ``n_comm``, ``iters``, ``active``; updated in
+    place), from the round's shares, raw service times and the binomial's
+    normals ``z``.  Where ``s`` carries the online estimate (``est_done``,
+    ``est_time``, ``lam_hat``: unknown rates) it is updated too."""
+    t_k = torch.where(busy, t_raw, INF)
+    t_star = t_k.amin(1)
+    proceed = s["active"] & torch.isfinite(t_star)
+    prow = proceed[:, None]
+    fin = t_k == t_star[:, None]              # the finisher clears its queue
+    p = torch.clamp(t_star[:, None] / t_k, 0.0, 1.0)
+    done = _binomial(torch.clamp_min(assign - 1.0, 0.0), p, z)
+    done = torch.where(fin, assign, torch.where(busy, done, 0.0))
+    started = s["iters"] > 0
+    comm = torch.clamp_min(assign - s["n_left"], 0.0).sum(1)
+    s["iters"] = s["iters"] + proceed
+    s["n_rem"] = torch.where(proceed, s["n_rem"] - done.sum(1), s["n_rem"])
+    s["n_left"] = torch.where(prow, assign - done, s["n_left"])
+    s["t_comp"] = torch.where(proceed, s["t_comp"] + t_star, s["t_comp"])
+    s["n_comm"] = torch.where(
+        proceed, s["n_comm"] + torch.where(started, comm, 0.0), s["n_comm"])
+    s["active"] = proceed & (s["n_rem"] > threshold) & (s["iters"] < max_iter)
+    if "lam_hat" in s:
+        # the accumulators go unmasked: frozen rows only read them through
+        # lam_hat, which is masked
+        s["est_done"] = s["est_done"] + done
+        s["est_time"] = s["est_time"] + t_star
+        s["lam_hat"] = torch.where(prow, torch.where(
+            s["est_done"] > 0.0, s["est_done"] / torch.clamp_min(
+                s["est_time"], 1e-30)[:, None], prior), s["lam_hat"])
 
 
 # ---------------------------------------------------------------------------
@@ -174,15 +214,15 @@ def run_grid(lam: torch.Tensor, sched: Optional[torch.Tensor],
     R = sched.shape[1] if sched is not None else 1
 
     n_rem = torch.full((B,), float(n0), dtype=F32, device=dev)
-    n_left = torch.zeros((B, K), dtype=F32, device=dev)
-    t_comp = torch.zeros(B, dtype=F32, device=dev)
-    n_comm = torch.zeros(B, dtype=F32, device=dev)
-    iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    active = n_rem > threshold
+    s = {"n_rem": n_rem, "n_left": torch.zeros((B, K), dtype=F32, device=dev),
+         "t_comp": torch.zeros(B, dtype=F32, device=dev),
+         "n_comm": torch.zeros(B, dtype=F32, device=dev),
+         "iters": torch.zeros(B, dtype=torch.int32, device=dev),
+         "active": n_rem > threshold}
     if not known:
-        est_done = torch.zeros((B, K), dtype=F32, device=dev)
-        est_time = torch.zeros(B, dtype=F32, device=dev)
-        lam_hat = prior.clone()
+        s.update(est_done=torch.zeros((B, K), dtype=F32, device=dev),
+                 est_time=torch.zeros(B, dtype=F32, device=dev),
+                 lam_hat=prior.clone())
 
     rnd = 0
     while True:
@@ -190,47 +230,26 @@ def run_grid(lam: torch.Tensor, sched: Optional[torch.Tensor],
         # round is the loop's counter: one schedule row for the batch
         inv_lam = (inv_lam0 if sched is None
                    else 1.0 / sched[:, min(rnd, R - 1), :])
-        rates = lam if known else lam_hat
-        rsum = lam_sum if known else lam_hat.sum(1)
-        assign = torch.clamp_max(rates * (n_rem / rsum)[:, None], cap)
+        rates = lam if known else s["lam_hat"]
+        rsum = lam_sum if known else rates.sum(1)
+        assign = torch.clamp_max(rates * (s["n_rem"] / rsum)[:, None], cap)
         # "at least half a unit" is the integer engine's "assign > 0"
         busy = assign > 0.5
         live_min, any_active = _round_read(
-            torch.where(busy & active[:, None], assign, INF), active)
+            torch.where(busy & s["active"][:, None], assign, INF),
+            s["active"])
         if not any_active:
             break
         t_raw = _tiered(gen, torch.clamp_min(assign, 0.5), inv_lam,
                         live_min)
-        t_k = torch.where(busy, t_raw, INF)
-        t_star = t_k.amin(1)
-        proceed = active & torch.isfinite(t_star)
-        fin = t_k == t_star[:, None]          # the finisher clears its queue
-        p = torch.clamp(t_star[:, None] / t_k, 0.0, 1.0)
-        done = binomial_normal(gen, torch.clamp_min(assign - 1.0, 0.0), p)
-        done = torch.where(fin, assign, torch.where(busy, done, 0.0))
-        started = iters > 0
-        comm = torch.clamp_min(assign - n_left, 0.0).sum(1)
-        prow = proceed[:, None]
-        iters = iters + proceed
-        n_rem = torch.where(proceed, n_rem - done.sum(1), n_rem)
-        n_left = torch.where(prow, assign - done, n_left)
-        t_comp = torch.where(proceed, t_comp + t_star, t_comp)
-        n_comm = torch.where(proceed, n_comm + torch.where(started, comm, 0.0),
-                             n_comm)
-        active = proceed & (n_rem > threshold) & (iters < max_iter)
-        if not known:
-            # the accumulators go unmasked: frozen rows only read them
-            # through lam_hat, which is masked
-            est_done = est_done + done
-            est_time = est_time + t_star
-            lam_hat = torch.where(
-                prow, torch.where(est_done > 0.0, est_done / torch.clamp_min(
-                    est_time, 1e-30)[:, None], prior), lam_hat)
+        _advance(s, assign, busy, t_raw, _normal(assign.shape, gen), prior,
+                 threshold, max_iter)
         rnd += 1
 
     # final phase: assign the remainder proportionally, wait for all
+    n_rem, n_left, iters = s["n_rem"], s["n_left"], s["iters"]
     has_rem = n_rem > 1e-6
-    rates = lam if known else lam_hat
+    rates = lam if known else s["lam_hat"]
     if sched is None:
         inv_lam = inv_lam0
     else:
@@ -239,10 +258,9 @@ def run_grid(lam: torch.Tensor, sched: Optional[torch.Tensor],
     share = rates * (n_rem / rates.sum(1))[:, None]
     comm = torch.clamp_min(share - n_left, 0.0).sum(1)
     t_k = torch.where(share > 1e-9, gamma_mt(gen, share, inv_lam), 0.0)
-    t_comp = t_comp + torch.where(has_rem, t_k.amax(1), 0.0)
-    n_comm = n_comm + torch.where(has_rem & (iters > 0), comm, 0.0)
-    iters = iters + has_rem
-    return t_comp, iters.to(F32), n_comm
+    t_comp = s["t_comp"] + torch.where(has_rem, t_k.amax(1), 0.0)
+    n_comm = s["n_comm"] + torch.where(has_rem & (iters > 0), comm, 0.0)
+    return t_comp, (iters + has_rem).to(F32), n_comm
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +268,10 @@ def run_grid(lam: torch.Tensor, sched: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 _SFX = ("k", "u")
+# a scheme's row state (suffixed by scheme in the panel's state) and the
+# unknown member's estimate
+_ROW_STATE = ("n_rem", "n_left", "t_comp", "n_comm", "iters", "active")
+_ESTIMATE = ("est_done", "est_time", "lam_hat")
 _NOT_FINALIZED = ("est_done", "est_time")
 
 
@@ -298,39 +320,13 @@ def _panel_stage(st: Dict[str, torch.Tensor], lam: torch.Tensor,
             torch.clamp_min(assign_u, 0.5), inv_lam, live_min)))
         z_b = _normal(lam.shape, gen)
         for sfx in _SFX:
-            a, b = assign[sfx], busy[sfx]
-            t_k = torch.where(b, t_raw[sfx], INF)
-            t_star = t_k.amin(1)
-            proceed = st["active_" + sfx] & torch.isfinite(t_star)
-            prow = proceed[:, None]
-            fin = t_k == t_star[:, None]
-            p = torch.clamp(t_star[:, None] / t_k, 0.0, 1.0)
-            n = torch.clamp_min(a - 1.0, 0.0)
-            done = torch.minimum(torch.clamp_min(n * p + z_b * torch.sqrt(
-                torch.clamp_min(n * p * (1.0 - p), 0.0)), 0.0), n)
-            done = torch.where(fin, a, torch.where(b, done, 0.0))
-            started = st["iters_" + sfx] > 0
-            comm = torch.clamp_min(a - st["n_left_" + sfx], 0.0).sum(1)
-            iters = st["iters_" + sfx] + proceed
-            n_rem = torch.where(proceed, st["n_rem_" + sfx] - done.sum(1),
-                                st["n_rem_" + sfx])
-            st["n_rem_" + sfx] = n_rem
-            st["n_left_" + sfx] = torch.where(prow, a - done,
-                                              st["n_left_" + sfx])
-            st["t_comp_" + sfx] = torch.where(
-                proceed, st["t_comp_" + sfx] + t_star, st["t_comp_" + sfx])
-            st["n_comm_" + sfx] = torch.where(
-                proceed, st["n_comm_" + sfx] + torch.where(started, comm, 0.0),
-                st["n_comm_" + sfx])
-            st["iters_" + sfx] = iters
-            st["active_" + sfx] = (proceed & (n_rem > threshold)
-                                   & (iters < max_iter))
+            s = {k: st[k + "_" + sfx] for k in _ROW_STATE}
             if sfx == "u":
-                st["est_done"] = st["est_done"] + done
-                st["est_time"] = st["est_time"] + t_star
-                st["lam_hat"] = torch.where(prow, torch.where(
-                    st["est_done"] > 0.0, st["est_done"] / torch.clamp_min(
-                        st["est_time"], 1e-30)[:, None], prior), st["lam_hat"])
+                s.update((k, st[k]) for k in _ESTIMATE)
+            _advance(s, assign[sfx], busy[sfx], t_raw[sfx], z_b, prior,
+                     threshold, max_iter)
+            st.update((k if k in _ESTIMATE else k + "_" + sfx, v)
+                      for k, v in s.items())
         rnd += 1
     return rnd
 

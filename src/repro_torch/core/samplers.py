@@ -52,7 +52,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Literal, Optional, Sequence, Tuple
 
 import numpy as np
@@ -153,8 +152,9 @@ def grid_devices(devices=None, device=DEFAULT_DEVICE
                  ) -> Tuple[torch.device, ...]:
     """The shard devices ``devices`` names: a sequence of devices as
     given (one card may hold several shards), or a count -- ``None`` for
-    every card -- of ``device``'s type: the first cards, at most
-    ``torch.cuda.device_count()``, or that many shards of the CPU."""
+    every card -- of ``device``'s type: that many shards of the CPU, or
+    at most ``torch.cuda.device_count()`` cards counted round from
+    ``device``'s card, so shard 0 sits on the card the caller named."""
     dev = resolve_device(device)
     if devices is not None and not isinstance(devices, (int, np.integer)):
         mesh = tuple(resolve_device(d) for d in devices)
@@ -164,8 +164,12 @@ def grid_devices(devices=None, device=DEFAULT_DEVICE
     if dev.type == "cpu":
         return (dev,) * max(1, int(devices or 1))
     have = torch.cuda.device_count()
+    first = dev.index or 0
+    if first >= have:
+        raise ValueError(f"device={str(dev)!r} but torch sees {have} "
+                         f"CUDA devices")
     n = have if devices is None else max(1, min(int(devices), have))
-    return tuple(torch.device("cuda", i) for i in range(n))
+    return tuple(torch.device("cuda", (first + i) % have) for i in range(n))
 
 
 @contextlib.contextmanager
@@ -195,19 +199,15 @@ def active_grid_mesh() -> Optional[Tuple[torch.device, ...]]:
 
 def run_shards(fn: Callable, mesh: Sequence[torch.device],
                args: Sequence[tuple]) -> list:
-    """``[fn(dev, *a) for dev, a in zip(mesh, args)]``: one thread per
-    shard where the shards sit on distinct cards (each card then works
-    while the host waits on another), in turn otherwise."""
-    if len(set(mesh)) < len(mesh) or mesh[0].type != "cuda":
-        return [fn(d, *a) for d, a in zip(mesh, args)]
-
-    def on_card(d, a):
-        with torch.cuda.device(d):
-            return fn(d, *a)
-
-    with ThreadPoolExecutor(len(mesh)) as pool:
-        futures = [pool.submit(on_card, d, a) for d, a in zip(mesh, args)]
-        return [f.result() for f in futures]
+    """``[fn(dev, *a) for dev, a in zip(mesh, args)]``, the shards in
+    turn, each under its card's device guard (a kernel launches on the
+    current device)."""
+    out = []
+    for d, a in zip(mesh, args):
+        with (torch.cuda.device(d) if d.type == "cuda"
+              else contextlib.nullcontext()):
+            out.append(fn(d, *a))
+    return out
 
 
 def shard_bounds(B: int, D: int) -> List[Tuple[int, int]]:
@@ -537,12 +537,14 @@ def gamma_rows_numpy(shape_rows: np.ndarray, scale_rows: np.ndarray,
 
 def shard_devices(device) -> Tuple[torch.device, ...]:
     """The devices a grid call runs on: the active ``grid_sharding``'s,
-    which must be of ``device``'s type, else ``device`` alone."""
+    which must be of ``device``'s type and hold ``device`` where that
+    names a card, else ``device`` alone."""
     dev = resolve_device(device)
     mesh = active_grid_mesh()
     if mesh is None:
         return (dev,)
-    if any(d.type != dev.type for d in mesh):
+    if any(d.type != dev.type for d in mesh) or (
+            dev.index is not None and dev not in mesh):
         raise ValueError(f"grid_sharding over {[str(d) for d in mesh]} "
                          f"does not match device={str(dev)!r}")
     return mesh

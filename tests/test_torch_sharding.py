@@ -36,7 +36,7 @@ from repro.experiments.plan import compile_plan as ref_compile_plan
 from repro_torch.core import ExchangeConfig, HetSpec, get_scheme, \
     mc_grid_panel
 from repro_torch.core.samplers import (active_grid_mesh, grid_devices,
-                                       grid_sharding,
+                                       grid_sharding, shard_devices,
                                        work_exchange_grid_numpy)
 from repro_torch.experiments import ResultsStore
 from repro_torch.experiments.__main__ import demo_spec, main as cli_main
@@ -259,6 +259,29 @@ def test_grid_devices_resolution():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             grid_devices(2)
+
+
+def test_grid_devices_start_at_the_named_card(monkeypatch):
+    """A count of cards starts at the card ``device`` names and wraps
+    round, and a grid call on a card outside the installed mesh raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert grid_devices(2, "cuda") == tuple(cards[:2])
+    assert grid_devices(2, "cuda:1") == tuple(cards[1:3])
+    assert grid_devices(3, "cuda:3") == (cards[3], cards[0], cards[1])
+    assert grid_devices(None, "cuda:2") == tuple(cards[2:] + cards[:2])
+    assert grid_devices(9, "cuda:0") == tuple(cards)
+    with pytest.raises(ValueError, match="sees 4 CUDA"):
+        grid_devices(2, "cuda:4")
+    with grid_sharding(2, device="cuda:1") as mesh:
+        assert mesh == tuple(cards[1:3])
+        assert shard_devices("cuda:1") == mesh
+        assert shard_devices("cuda") == mesh
+        with pytest.raises(ValueError, match="does not match"):
+            shard_devices("cuda:0")
+        with pytest.raises(ValueError, match="does not match"):
+            shard_devices("cpu")
 
 
 # the reference's names of the port's backends and serving engines
