@@ -345,7 +345,36 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     ``torch_serve_batch.py --live`` and ``torch_train_het_sim.py`` with
     ``--device cuda`` in background processes beside (b) and (c), each
     exiting 0 with its healthy lines.  It adds a ``we_rounds`` entry for
-    the row split to the kernel line.
+    the row split to the kernel line;
+29. the mesh, qwen3-moe-30b-a3b resolved for tp 4 (its published 32 Q /
+    4 KV heads).  With 4 cards or more, 4 NCCL ranks (one process a
+    card, ``repro_torch.launch.mesh.spawn``, the kernels built in 2) on
+    the mesh (data 1, model 4): (a) one MoE layer at full width, (4,
+    2048, 2048) bf16, through ``moe_apply_a2a`` (``expert_matmul`` on
+    each rank's 32 experts, 3 launches a rank on ``tc``) against the plain
+    emulation on card 0 (the same 4 token blocks, per-rank capacities and
+    exchange by indexing, the plain expert products): relative RMS <=
+    1e-3, the aux term within float32 rounding, the dropped pairs equal;
+    (b) one tensor-parallel GQA layer (8 Q / 1 KV heads a card, the
+    sequence all-gathered and the output reduce-scattered) against the
+    layer unsharded on card 0: 2e-2 and each row's relative RMS <= 2^-7;
+    (c) the model at full width and depth (48 layers), bf16, with the
+    sharded init (seed 0), serving 4 x 2048 prompt tokens (drawn as
+    ``launch/serve.py`` draws them) and 32 new ones through
+    ``greedy_generate`` under the mesh: launches zeroed just before the
+    generate and read just after (flash 48 at (4, 2048, 8/1, 128),
+    ``expert_matmul`` 4608, all on ``tc``), the same tokens on every rank,
+    the decode within ``LOGIT_REL_RMS`` per step of a teacher-forced pass
+    over the generated tokens behind the prompt's cache, and per rank the
+    init and generate peaks, the prefill wall, decode ms a step, new
+    tok/s, the device's busy share and NCCL's share of device time in one
+    profiled generate, and the collectives of a generate by op and group
+    size; (d) on card 0 alone, flash and ``expert_matmul`` at each rank's
+    shapes against their bounds, plain versions and SDPA / ``torch.bmm``,
+    one kernel-line entry each.  With fewer cards: (a) emulated on card 0,
+    the kernel against the plain version; (c) at world size 1, depth 12;
+    (d) at those shapes; and one line naming the checks that need 4
+    cards.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
@@ -367,6 +396,11 @@ without a CUDA device it exits 1 at once.
 runs only phases 12 and 13's granite serving and prints its times as one
 JSON line: run from the roots of two trees in turn, it compares their
 ``src`` on one card.
+
+    python3 chip_smoke.py --mesh
+
+builds the kernels and runs only phase 29 (on a machine with 4 cards:
+the NCCL mesh), then prints its kernel line and the result line.
 """
 from __future__ import annotations
 
@@ -573,6 +607,14 @@ LAUNCH_STEPS, LAUNCH_FIRST = 4, 2
 # trials of the serving split with geometric job sizes; the examples,
 # their arguments (small step counts) and the lines a healthy run prints
 SPLIT_D, SERVE_SPLIT_D, SPLIT_CPU_TRIALS, GEO_SPLIT_TRIALS = 4, 2, 125, 64
+MESH_ARCH = "qwen3-moe-30b-a3b"        # phase 29
+MESH_TP = 4                             # cards of the (data 1, model 4) mesh
+MESH_B, MESH_PROMPT, MESH_STEPS = 4, 2048, 32
+MESH_ONE_CARD_DEPTH = 12                # (c) at world size 1 on one card
+MESH_LIMIT_S = 600                      # the 4-rank spawn's hard limit
+# the a2a's aux term is NCCL's mean of 4 per-expert vectors against the
+# emulation's torch mean of the same 4: float32 sums in two orders
+MESH_AUX_RTOL = 1e-6
 EXAMPLES = (
     ("torch_quickstart.py", ("--steps", "4"),
      ("oracle lower bound", "work exchange", "cache HIT")),
@@ -5034,6 +5076,635 @@ def launcher_phase(torch, dev) -> None:
     print(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
 
 
+@contextlib.contextmanager
+def gmm_tally():
+    """Count ``expert_matmul``'s launches by operand shape while the block
+    runs: {(E, C, D, F): launches}.  The wrapper still counts them."""
+    from repro_torch.kernels.moe_gmm import ops
+    fn = ops.expert_matmul_cuda
+    tally = {}
+
+    def wrapper(buf, w):
+        key = (*buf.shape, w.shape[2])
+        tally[key] = tally.get(key, 0) + 1
+        return fn(buf, w)
+
+    ops.expert_matmul_cuda = wrapper
+    try:
+        yield tally
+    finally:
+        ops.expert_matmul_cuda = fn
+
+
+def a2a_emulated(torch, p, cfg, x, tp: int, matmul):
+    """``moe_apply_a2a`` of ``tp`` model ranks (data 1) in one process:
+    each rank's sequence block of x (B, S, D) routed with its own capacity
+    ``c_send``, the two exchanges done by indexing, each owner's experts
+    through ``matmul``.  Returns (out (B, S, D), aux, dropped pairs)."""
+    import torch.nn.functional as F
+    from repro_torch.models.moe import _local_rank_in_expert
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    E_pad = -(-E // tp) * tp
+    E_loc = E_pad // tp
+    routes, mes, ces = [], [], []
+    for xb in x.reshape(B, tp, S // tp, D).unbind(1):
+        t = xb.shape[0] * xb.shape[1]
+        xf = xb.reshape(t, D)
+        logits = F.pad(xf.float() @ p["router"], (0, E_pad - E),
+                       value=-1e30)
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_e = torch.topk(probs, K, dim=-1)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        mes.append(probs[:, :E].mean(0))
+        ces.append(F.one_hot(top_e[:, 0], E_pad)[:, :E].float().mean(0))
+        c_send = max(4, -(-int(t * K * cfg.capacity_factor / E_pad) // 4) * 4)
+        ranks = _local_rank_in_expert(top_e.reshape(-1), E_pad)
+        keep = ranks < c_send
+        slot = torch.where(keep, top_e.reshape(-1) * c_send + ranks,
+                           E_pad * c_send)
+        send = torch.zeros((E_pad * c_send + 1, D), dtype=x.dtype,
+                           device=x.device)
+        send.index_copy_(0, slot, xf.repeat_interleave(K, dim=0))
+        routes.append((top_p, slot, keep, send[:-1].reshape(
+            tp, E_loc * c_send, D), t))
+    me, ce = torch.stack(mes).mean(0), torch.stack(ces).mean(0)
+    aux = E * torch.sum(me * ce)
+    back = [[None] * tp for _ in range(tp)]
+    for r in range(tp):                        # expert owner r
+        recv = torch.stack([routes[j][3][r] for j in range(tp)])
+        buf = recv.reshape(tp, E_loc, c_send, D).transpose(0, 1) \
+            .reshape(E_loc, tp * c_send, D)
+        wg, wu, wo = (p[k][r * E_loc:(r + 1) * E_loc]
+                      for k in ("wi_gate", "wi_up", "wo"))
+        ob = matmul(F.silu(matmul(buf, wg)) * matmul(buf, wu), wo)
+        ob = ob.reshape(E_loc, tp, c_send, D)
+        for j in range(tp):
+            back[j][r] = ob[:, j].reshape(E_loc * c_send, D)
+    outs = []
+    for j, (top_p, slot, keep, _, t) in enumerate(routes):
+        out_flat = torch.cat(back[j], 0)
+        gathered = torch.where(
+            keep[:, None], out_flat[slot.clamp_max(E_pad * c_send - 1)], 0.0)
+        out = (gathered * top_p.reshape(-1, 1).to(x.dtype)).reshape(
+            t, K, D).sum(dim=1)
+        outs.append(out.reshape(B, S // tp, D))
+    dropped = sum(int((~keep).sum()) for _, _, keep, _, _ in routes)
+    return torch.cat(outs, 1), aux, dropped
+
+
+def mesh_layer_weights(torch, dev, cfg, kind: str):
+    """One full-width layer's weights (``kind`` "moe" or "attn"), drawn on
+    ``dev`` from seed 29, the same on every rank."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    gen = torch.Generator(device=dev).manual_seed(29)
+    init = moe_mod.moe_init if kind == "moe" else attn_mod.gqa_init
+    return init(gen, cfg, torch.bfloat16, dev)
+
+
+def mesh_input(torch, dev, D: int):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return torch.randn((MESH_B, MESH_PROMPT, D), generator=gen, device=dev,
+                       dtype=torch.float32).to(torch.bfloat16)
+
+
+def mesh_moe_layer(torch, dev, mesh, cfg) -> dict:
+    """29 (a) on a rank of the (1, tp) mesh: one MoE layer through
+    ``moe_apply_a2a`` (``expert_matmul`` on this rank's experts) on this
+    rank's sequence block, gathered; on rank 0 also the plain
+    single-process emulation on the same blocks."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gmm import expert_matmul_ref
+    from repro_torch.models import moe as moe_mod
+    tp = shd.mesh_shape(mesh)["model"]
+    p = mesh_layer_weights(torch, dev, cfg, "moe")
+    x = mesh_input(torch, dev, cfg.d_model)
+    specs = shd.param_specs(cfg, {"mlp": p}, tp, fsdp=False)["mlp"]
+    local = {k: shd.local_block(v, specs[k], mesh).contiguous()
+             for k, v in p.items()}
+    _build.reset_launch_counts()
+    with torch.no_grad(), shd.use_mesh(mesh):
+        x_loc = shd.maybe_shard(x, None, "model", None).contiguous()
+        out, aux = moe_mod.moe_apply_a2a(local, cfg, x_loc)
+        keep = moe_mod.route_local(local, cfg, x_loc)[2]
+        dropped = int(coll.all_reduce((~keep).sum(), "model"))
+        out = coll.all_gather(out, "model", dim=1)
+    torch.cuda.synchronize()
+    rec = {"a_launches": _build.LAUNCH_COUNTS["expert_matmul"],
+           "a_tc": _build.DESIGN_COUNTS[("expert_matmul", "tc")],
+           "a_aux": float(aux), "a_dropped": dropped,
+           "a_pairs": x.shape[0] * x.shape[1] * cfg.experts_per_token}
+    if shd.axis_index("model") == 0:
+        with torch.no_grad():
+            want, aux_p, dropped_p = a2a_emulated(torch, p, cfg, x, tp,
+                                                  expert_matmul_ref)
+        rec.update(a_rms=rel_rms(out, want), a_aux_plain=float(aux_p),
+                   a_dropped_plain=dropped_p,
+                   a_finite=bool(torch.isfinite(out).all()))
+    return rec
+
+
+def mesh_attention_layer(torch, dev, mesh, cfg) -> dict:
+    """29 (b) on a rank: one tensor-parallel GQA layer on the prefill's
+    sequence-parallel pattern (this rank's sequence block all-gathered,
+    its heads, the output reduce-scattered), gathered on every rank and
+    held against the layer unsharded (rank 0)."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import attention as attn_mod
+    tp = shd.mesh_shape(mesh)["model"]
+    p = mesh_layer_weights(torch, dev, cfg, "attn")
+    x = mesh_input(torch, dev, cfg.d_model)
+    specs = shd.param_specs(cfg, {"attn": p}, tp, fsdp=False)["attn"]
+    local = {k: shd.local_block(v, specs[k], mesh).contiguous()
+             for k, v in p.items()}
+    with torch.no_grad(), shd.use_mesh(mesh):
+        xg = coll.all_gather(shd.maybe_shard(x, None, "model", None), "model",
+                             dim=1)
+        y = coll.reduce_scatter(attn_mod.gqa_forward(local, cfg, xg),
+                                "model", dim=1)
+        got = coll.all_gather(y, "model", dim=1)
+    rec = {}
+    if shd.axis_index("model") == 0:
+        with torch.no_grad(), shd.use_mesh(None):
+            want = attn_mod.gqa_forward(p, cfg, x)
+        tol = FLASH_TOL["bfloat16"]
+        rec.update(
+            b_err=float((got.float() - want.float()).abs().max()),
+            b_close=bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                        atol=tol)),
+            b_worst_row=float(rel_rms(got, want, (2,)).max()),
+            b_out_rms=float(want.float().pow(2).mean().sqrt()))
+    return rec
+
+
+@contextlib.contextmanager
+def routes_seen(torch):
+    """Record each MoE layer call's top-k experts (T, K) as the model
+    runs."""
+    from repro_torch.models import moe as moe_mod
+    route, seen = moe_mod.route, []
+
+    def recording(p, cfg, x):
+        out = route(p, cfg, x)
+        seen.append(moe_mod._router(p, cfg, x.reshape(-1, x.shape[-1]))[1])
+        return out
+
+    moe_mod.route = recording
+    try:
+        yield seen
+    finally:
+        moe_mod.route = route
+
+
+@contextlib.contextmanager
+def routes_replayed(torch, top_es):
+    """Route each MoE layer call to the next of ``top_es`` (T, K) experts
+    instead of its own top k: weights from its own float32 router (the
+    replayed experts' probabilities, renormalised), slots in token order
+    under its capacity, as ``moe.route`` makes them."""
+    from repro_torch.models import moe as moe_mod
+    route, it = moe_mod.route, iter(top_es)
+
+    def replayed(p, cfg, x):
+        top_e = next(it)
+        E = cfg.n_experts
+        xf = x.reshape(-1, x.shape[-1])
+        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        top_p = probs.gather(1, top_e)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        C = moe_mod._capacity(xf.shape[0], cfg)
+        ranks = moe_mod._local_rank_in_expert(top_e.reshape(-1), E)
+        keep = ranks < C
+        slot = torch.where(keep, top_e.reshape(-1) * C + ranks, E * C)
+        aux = E * torch.sum(probs.mean(0) * torch.nn.functional.one_hot(
+            top_e[:, 0], E).float().mean(0))
+        return top_p, slot, keep, C, aux
+
+    moe_mod.route = replayed
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+
+
+def forced_chunk(torch, model, params, cache, toks, P0: int):
+    """The logits (B, n, V) float32 of one pass over ``toks`` (B, n) at
+    positions P0.., teacher-forced behind the prompt's cache (its first
+    P0 slots, which the decode steps never write): each layer's queries of
+    the n tokens attend over the cached keys and their own in one flash
+    launch (right-aligned, causal), and the MoE runs on the scatter path
+    at a capacity that drops nothing, as a decode step's does.  What the
+    decode steps' logits should be."""
+    import dataclasses
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.models.common import rmsnorm
+    cfg = model.cfg
+    nodrop = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    B, n = toks.shape
+    h = tf_mod._embed_tokens(params, cfg, {"tokens": toks})
+    pos = torch.arange(P0, P0 + n, device=toks.device)[None]
+    for j in range(cfg.n_layers):
+        p, c = tf_mod._index(params["body"]["b0"], j), cache["body"]["b0"][j]
+        q, k, v = attn_mod._project_qkv(p["attn"], cfg, rmsnorm(
+            h, p["ln1"], cfg.norm_eps), pos)
+        k = torch.cat([c["k"][:, :P0], k], 1)
+        v = torch.cat([c["v"][:, :P0], v], 1)
+        ctx = attn_mod.attention_ctx(
+            q, *attn_mod._kv_of_local_q(cfg, q.shape[2], k, v),
+            cfg.hd ** -0.5, q_offset=P0)
+        h = h + tf_mod._tp_out(ctx.reshape(B, n, -1) @ p["attn"]["wo"],
+                               False)
+        h = h + moe_mod.moe_apply_scatter(
+            p["mlp"], nodrop, rmsnorm(h, p["ln2"], cfg.norm_eps))[0]
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return tf_mod._logits(params, cfg, h)[..., :cfg.vocab_size].float()
+
+
+def decode_against_forced(torch, model, params, local, s_max: int) -> dict:
+    """Prefill ``local`` and decode MESH_STEPS - 1 greedy tokens, keeping
+    each step's logits and each MoE layer's routing; then ``forced_chunk``
+    over the fed tokens twice: routing for itself (printed: the share of
+    (token, k) pairs it routes to other experts than the decode did, and
+    its relative RMS), and with the decode's routing replayed (held at
+    ``LOGIT_REL_RMS`` a step): a near-tied top-k choice that one bf16
+    rounding flips is another computation, not a decode error (as in
+    phase 17)."""
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+    cfg = model.cfg
+    L, K, V = cfg.n_layers, cfg.experts_per_token, cfg.vocab_size
+    cache = model.init_cache(MESH_B, s_max, local["tokens"].device)
+    logits, cache = make_prefill_step(model)(params, local, cache)
+    decode = make_decode_step(model)
+    served, fed = [], []
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    with routes_seen(torch) as seen:
+        for _ in range(MESH_STEPS - 1):
+            fed.append(tok)
+            logits, cache = decode(params, cache, tok)
+            served.append(logits[:, -1, :V].float())
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+    served, fed = torch.stack(served, 1), torch.cat(fed, 1)
+    B, n = fed.shape
+    # the decode's experts of each layer, in the forced pass's token order
+    decoded = [torch.stack([seen[s * L + j] for s in range(n)], 1)
+               .reshape(B * n, K) for j in range(L)]
+    with routes_seen(torch) as own:
+        free = forced_chunk(torch, model, params, cache, fed, MESH_PROMPT)
+    with routes_replayed(torch, decoded):
+        forced = forced_chunk(torch, model, params, cache, fed, MESH_PROMPT)
+    flips = sum(int((torch.sort(a, 1)[0] != torch.sort(b, 1)[0]).sum())
+                for a, b in zip(own, decoded)) / (L * B * n * K)
+    return {"step_rms": rel_rms(served, forced, (0, 2)).cpu(),
+            "free_rms": rel_rms(served, free, (0, 2)).cpu(),
+            "routed_differently": flips,
+            "forced_agree": float((forced.argmax(-1)[:, :-1]
+                                   == fed[:, 1:]).float().mean()),
+            "served_finite": bool(torch.isfinite(served).all())}
+
+
+def mesh_serve(torch, dev, mesh, cfg, out: str) -> dict:
+    """29 (c) on a rank: ``cfg`` served with the sharded init through
+    ``greedy_generate`` under the mesh; launches (zeroed just before the
+    counted generate, read just after) by kernel, design and shape, the
+    collectives of a generate, memory, walls, one profiled generate, and
+    the decode held against ``forced_chunk``.  Rank 0 keeps the first
+    flash call's inputs in ``out`` for the kernel line."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.serve import greedy_generate, make_prefill_step
+    model = build_model(cfg)
+    s_max = MESH_PROMPT + MESH_STEPS
+    rec = {}
+    with torch.no_grad(), shd.use_mesh(mesh):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["init_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rec["param_gb"] = describe_params(params)[1] / 1e9
+        batch = prompt_batch(cfg, MESH_B, MESH_PROMPT, dev)
+
+        def generate():
+            return greedy_generate(model, params, batch, model.init_cache(
+                MESH_B, s_max, dev), MESH_STEPS)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        coll.reset_counts()
+        with flash_tally() as (ftally, first), gmm_tally() as gtally:
+            t0 = time.perf_counter()
+            toks, _ = generate()
+            torch.cuda.synchronize()
+            rec["first_s"] = time.perf_counter() - t0
+        rec.update(
+            launches={k: v for k, v in _build.LAUNCH_COUNTS.items() if v},
+            designs={f"{k}/{d}": v for (k, d), v in
+                     _build.DESIGN_COUNTS.items() if v},
+            flash_shapes=dict(ftally), gmm_shapes=dict(gtally),
+            collectives=coll.counts(), toks=toks.cpu(),
+            gen_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        if shd.axis_index("model") == 0 and first:
+            (key, call), = first.items()
+            torch.save({"key": key, "call": tuple(
+                t.cpu() if isinstance(t, torch.Tensor) else t
+                for t in call)}, os.path.join(out, "flash-call.pt"))
+        del first
+        # walls: the prefill alone, then the generate (warm, one run each)
+        prefill = make_prefill_step(model)
+        local = shd.shard_batch(batch)
+        t0 = time.perf_counter()
+        prefill(params, local, model.init_cache(MESH_B, s_max, dev))
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        generate()
+        torch.cuda.synchronize()
+        rec["gen_s"] = time.perf_counter() - t0
+        # one profiled generate: the device's busy share and NCCL's share
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            generate()
+            torch.cuda.synchronize()
+            rec["prof_wall_s"] = time.perf_counter() - t0
+        events = [e for e in device_rows(torch, prof)[0]
+                  if e.self_device_time_total > 0]
+        rec["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        rec["nccl_ms"] = sum(e.self_device_time_total for e in events
+                             if "nccl" in e.key.lower()) / 1e3
+        # the decode against the teacher-forced continuation
+        rec.update(decode_against_forced(torch, model, params, local, s_max))
+        del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_rank(rank: int, out: str, tp: int, depth: int) -> None:
+    """Phase 29's body on one rank of a (1, tp) NCCL mesh, card ``rank``:
+    (a) and (b) where tp > 1, then (c); its record goes to ``out``."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, resolve_for_tp
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device("cuda", rank) if dist.get_backend() == "nccl" \
+        else torch.device("cpu")
+    mesh = make_host_mesh(model=tp)
+    cfg = resolve_for_tp(get_config(MESH_ARCH), tp)
+    rec = {"card": torch.cuda.get_device_name(dev)}
+    if tp > 1:
+        t0 = time.perf_counter()
+        rec.update(mesh_moe_layer(torch, dev, mesh, cfg))
+        rec.update(mesh_attention_layer(torch, dev, mesh, cfg))
+        rec["ab_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    t0 = time.perf_counter()
+    rec.update(mesh_serve(torch, dev, mesh, cfg, out))
+    rec["c_s"] = time.perf_counter() - t0
+    torch.save(rec, os.path.join(out, f"mesh-r{rank}.pt"))
+
+
+def gmm_entry(torch, dev, path: str, shape, launches: int) -> dict:
+    """The kernels line's entry for ``expert_matmul`` at one (E, C, D, F)
+    shape of a path, on N(0, 1) operands (weights scaled by D^-1/2): the
+    kernel against its plain version (``GMM_TOL``), every launch on
+    ``tc``, timed against its bound, the plain version and
+    ``torch.bmm``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gmm import (expert_matmul_cuda,
+                                             expert_matmul_ref)
+    E, C, D, F = shape
+    gen = torch.Generator(device=dev).manual_seed(29)
+    buf = torch.randn((E, C, D), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((E, D, F), generator=gen, device=dev)
+         * D ** -0.5).to(torch.bfloat16)
+    before = _build.DESIGN_COUNTS[("expert_matmul", "tc")]
+    got = expert_matmul_cuda(buf, w)
+    took = _build.DESIGN_COUNTS[("expert_matmul", "tc")] - before
+    want = expert_matmul_ref(buf, w)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = GMM_TOL["bfloat16"]
+    ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                             atol=tol)) and took == 1
+    ms, plain_ms, lib_ms = (cuda_ms(torch, fn) for fn in (
+        lambda: expert_matmul_cuda(buf, w), lambda: expert_matmul_ref(buf, w),
+        lambda: torch.bmm(buf, w)))
+    bound, by, flops, _ = gmm_bound(E, C, D, F, 2)
+    print(f"  expert_matmul on {path} {(E, C, D)}x{(E, D, F)} bf16, "
+          f"{launches} launches a generate a rank: {'ok' if ok else 'FAIL'} "
+          f"max_abs_err {err:.3e} (tol {tol}); kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"torch.bmm {lib_ms:.4f} ms (kernel / torch.bmm "
+          f"{ms / lib_ms:.3f}); bound {bound:.4f} ms by {by} "
+          f"({bound / ms:.3f} of it)")
+    if not ok:
+        fail(f"expert_matmul at {shape} against plain: {err:.3e}")
+    return {"name": "expert_matmul", "path": path, "route": "cuda",
+            "source": "src/repro_torch/csrc/expert_matmul.cu",
+            "replaces": REPLACES["expert_matmul"], "launches": launches,
+            "shape": [E, C, D, F], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def mesh_one_card_moe(torch, dev, cfg) -> None:
+    """29 (a) on one card: the emulated tp-rank layer with the kernel
+    against the same emulation with the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gmm import (expert_matmul_cuda,
+                                             expert_matmul_ref)
+    p = mesh_layer_weights(torch, dev, cfg, "moe")
+    x = mesh_input(torch, dev, cfg.d_model)
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got, aux_k, drop_k = a2a_emulated(torch, p, cfg, x, MESH_TP,
+                                          expert_matmul_cuda)
+        n_k = _build.DESIGN_COUNTS[("expert_matmul", "tc")]
+        want, aux_p, drop_p = a2a_emulated(torch, p, cfg, x, MESH_TP,
+                                           expert_matmul_ref)
+    rms = rel_rms(got, want)
+    print(f"  (a) one {MESH_ARCH} MoE layer, ({MESH_B}, {MESH_PROMPT}, "
+          f"{cfg.d_model}) bf16, {MESH_TP} ranks emulated on card 0: "
+          f"kernel against plain relative RMS {rms:.3e} (limit "
+          f"{MOE_LAYER_REL_RMS}); aux {float(aux_k)!r} / {float(aux_p)!r}; "
+          f"dropped {drop_k} / {drop_p} of {x.shape[0] * x.shape[1] * 8} "
+          f"pairs; {n_k} launches on tc")
+    if not (rms <= MOE_LAYER_REL_RMS and float(aux_k) == float(aux_p)
+            and drop_k == drop_p and n_k == 3 * MESH_TP
+            and bool(torch.isfinite(got).all())):
+        fail("phase 29 (a): the emulated a2a layer's kernel path differs "
+             "from its plain version")
+
+
+def mesh_report(torch, recs: list, cfg, tp: int) -> None:
+    """Print and check the ranks' (c) records."""
+    c = cfg
+    want_flash = {(MESH_B, MESH_PROMPT, MESH_PROMPT, c.heads // tp,
+                   max(1, c.kv_heads // tp), c.hd, True, 0): c.n_layers}
+    want_gmm = 3 * c.n_layers * MESH_STEPS
+    toks0 = recs[0]["toks"]
+    for r, rec in enumerate(recs):
+        dec_ms = (rec["gen_s"] - rec["prefill_s"]) / (MESH_STEPS - 1) * 1e3
+        busy = rec["busy_ms"] / (rec["prof_wall_s"] * 1e3)
+        nccl = rec["nccl_ms"] / max(rec["busy_ms"], 1e-9)
+        prompt_tps = MESH_B * MESH_PROMPT / rec["prefill_s"]
+        new_tps = MESH_B * MESH_STEPS / rec["gen_s"]
+        print(f"  (c) rank {r}: init {rec['init_s']:.2f} s, weights "
+              f"{rec['param_gb']:.3f} GB, init peak {rec['init_peak_gb']:.3f}"
+              f" GB, generate peak {rec['gen_peak_gb']:.3f} GB; first "
+              f"generate {rec['first_s']:.3f} s; warm prefill "
+              f"{rec['prefill_s'] * 1e3:.3f} ms ({prompt_tps:.1f} prompt "
+              f"tok/s), decode {dec_ms:.3f} ms a step, generate "
+              f"{rec['gen_s'] * 1e3:.3f} ms ({new_tps:.2f} new tok/s); "
+              f"profiled generate {rec['prof_wall_s'] * 1e3:.3f} ms, device "
+              f"busy {rec['busy_ms']:.3f} ms ({100 * busy:.2f}%), NCCL "
+              f"{rec['nccl_ms']:.3f} ms ({100 * nccl:.2f}% of device time)")
+        print(f"      launches {rec['launches']}, designs {rec['designs']}; "
+              f"flash by (B, Sq, Sk, Hq, Hkv, d, causal, window) "
+              f"{rec['flash_shapes']} (want {want_flash}); expert_matmul by "
+              f"(E, C, D, F) {rec['gmm_shapes']}")
+        print(f"      collectives a generate (calls, bytes, ring wire bytes "
+              f"a rank): {rec['collectives']}")
+        rms = rec["step_rms"]
+        print(f"      decode against the teacher-forced continuation with "
+              f"the decode's routing replayed, relative RMS per step: max "
+              f"{float(rms.max()):.3e}, mean {float(rms.mean()):.3e} (limit "
+              f"{LOGIT_REL_RMS}); its argmax agreeing with the served "
+              f"tokens {rec['forced_agree']:.4f}; routing for itself: "
+              f"{rec['routed_differently']:.4f} of (token, k) pairs to "
+              f"other experts, relative RMS max "
+              f"{float(rec['free_rms'].max()):.3e}")
+        problems = []
+        if rec["flash_shapes"] != want_flash:
+            problems.append(f"flash launches {rec['flash_shapes']}")
+        if rec["launches"] != {"flash_attention": c.n_layers,
+                               "expert_matmul": want_gmm}:
+            problems.append(f"launches {rec['launches']}")
+        if rec["designs"] != {"flash_attention/tc": c.n_layers,
+                              "expert_matmul/tc": want_gmm}:
+            problems.append(f"designs {rec['designs']}")
+        if not torch.equal(rec["toks"], toks0):
+            problems.append("tokens differ from rank 0's")
+        if tuple(toks0.shape) != (MESH_B, MESH_STEPS) or \
+                int(toks0.min()) < 0 or int(toks0.max()) >= c.vocab_size:
+            problems.append(f"tokens of shape {tuple(toks0.shape)}")
+        if not rec["served_finite"] or float(rms.max()) > LOGIT_REL_RMS:
+            problems.append(f"decode relative RMS {float(rms.max()):.3e}")
+        if problems:
+            fail(f"phase 29 (c) rank {r}: " + "; ".join(problems))
+
+
+def mesh_phase(torch, dev) -> list:
+    """Phase 29; returns its kernels-line entries."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, resolve_for_tp
+    from repro_torch.launch.mesh import init_rank, spawn
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    tp = MESH_TP if n_cards >= MESH_TP else 1
+    depth = 0 if tp > 1 else MESH_ONE_CARD_DEPTH
+    cfg = resolve_for_tp(get_config(MESH_ARCH), tp)
+    print(f"phase 29: the mesh -- {MESH_ARCH} ({cfg.heads}/{cfg.kv_heads} "
+          f"heads at tp {tp}) over {tp} card(s), (data 1, model {tp})")
+    out = tempfile.mkdtemp(prefix="mesh-")
+    try:
+        torch.cuda.empty_cache()
+        if tp > 1:
+            spawn(mesh_rank, tp, (out, tp, depth), backend="nccl",
+                  timeout_s=MESH_LIMIT_S, store_dir=out)
+        else:
+            mesh_one_card_moe(torch, dev, resolve_for_tp(
+                get_config(MESH_ARCH), MESH_TP))
+            init_rank(0, 1, os.path.join(out, "store"), "nccl", 120)
+            try:
+                mesh_rank(0, out, 1, depth)
+            finally:
+                dist.destroy_process_group()
+        recs = [torch.load(os.path.join(out, f"mesh-r{r}.pt"),
+                           weights_only=False) for r in range(tp)]
+        flash = torch.load(os.path.join(out, "flash-call.pt"),
+                           weights_only=False)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if tp > 1:
+        a = recs[0]
+        n_tc = [r["a_tc"] for r in recs]
+        print(f"  (a) one {MESH_ARCH} MoE layer, ({MESH_B}, {MESH_PROMPT}, "
+              f"{cfg.d_model}) bf16, moe_apply_a2a over {tp} cards against "
+              f"the plain emulation on card 0: relative RMS "
+              f"{a['a_rms']:.3e} (limit {MOE_LAYER_REL_RMS}); aux "
+              f"{[r['a_aux'] for r in recs]} / {a['a_aux_plain']!r}; dropped "
+              f"{a['a_dropped']} / {a['a_dropped_plain']} of {a['a_pairs']} "
+              f"pairs; expert_matmul launches on tc a rank {n_tc}; (a)+(b) "
+              f"{a['ab_s']:.1f} s")
+        aux_gap = max(abs(r["a_aux"] - a["a_aux_plain"]) for r in recs)
+        if not (a["a_finite"] and a["a_rms"] <= MOE_LAYER_REL_RMS
+                and aux_gap <= MESH_AUX_RTOL * abs(a["a_aux_plain"])
+                and a["a_dropped"] == a["a_dropped_plain"]
+                and n_tc == [3] * tp
+                and [r["a_launches"] for r in recs] == [3] * tp):
+            fail("phase 29 (a): the a2a layer differs from its plain "
+                 "emulation")
+        print(f"  (b) one tensor-parallel GQA layer ({cfg.heads // tp}/"
+              f"{cfg.kv_heads // tp} heads a card) against the layer "
+              f"unsharded on card 0: max |diff| {a['b_err']:.3e}, allclose "
+              f"at rtol = atol = {FLASH_TOL['bfloat16']} "
+              f"{'ok' if a['b_close'] else 'FAIL'} (output RMS "
+              f"{a['b_out_rms']:.3e}); "
+              f"worst row's relative RMS {a['b_worst_row']:.3e} (limit "
+              f"{FLASH_ROW_REL_RMS:.3e})")
+        if not (a["b_close"] and a["b_worst_row"] <= FLASH_ROW_REL_RMS):
+            fail("phase 29 (b): the tensor-parallel attention layer differs "
+                 "from the unsharded one")
+    else:
+        print(f"  phase 29 needs {MESH_TP} cards for: (a) moe_apply_a2a over "
+              f"NCCL, (b) the tensor-parallel GQA layer, (c) {MESH_ARCH} at "
+              f"full depth over {MESH_TP} cards; this machine has "
+              f"{n_cards}: (a) ran emulated on card 0, (c) at world size 1 "
+              f"and depth {depth}")
+    c_cfg = dataclasses.replace(cfg, n_layers=depth or cfg.n_layers)
+    mesh_report(torch, recs, c_cfg, tp)
+    # (d) the kernels at each rank's shapes, on card 0 alone
+    rec = recs[0]
+    path = f"{MESH_ARCH} tp{tp}" + (f" depth {depth}" if depth else "")
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    key = flash["key"]
+    call = tuple(t.to(dev) if isinstance(t, torch.Tensor) else t
+                 for t in flash["call"])
+    ok, f_entry = zoo_flash_entry(torch, draw, f"{path} prefill",
+                                  rec["flash_shapes"][key], call,
+                                  (c_cfg.hd, c_cfg.hd))
+    if not ok:
+        fail(f"phase 29 (d): flash at {key} against plain")
+    entries = [f_entry] + [
+        gmm_entry(torch, dev, path, shape, n)
+        for shape, n in sorted(rec["gmm_shapes"].items())]
+    print(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi reads them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5405,9 +6076,9 @@ def main() -> None:
     if sys.argv[1:] == ["--granite-serve"]:
         granite_serve(torch, dev)
         return
-    if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}; the one option is "
-             f"--granite-serve")
+    if sys.argv[1:] not in ([], ["--mesh"]):
+        fail(f"unknown arguments {sys.argv[1:]}; the options are "
+             f"--granite-serve and --mesh")
 
     # 2. build every kernel from the checkout's sources, all at once
     from repro_torch.kernels import _build
@@ -5420,6 +6091,13 @@ def main() -> None:
     for lib, build_s in built.values():
         print(f"build: {lib.relative_to(ROOT)} in {build_s:.2f} s")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s wall")
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_kernels = mesh_phase(torch, dev)
+        print(json.dumps({"kernels": mesh_kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     # the bf16 tensor-core kernels, both scan designs and the main path's
     # we_rounds instance: registers, and no spill
     for label, lib, part in [
@@ -5614,6 +6292,8 @@ def main() -> None:
     clock("phase 27")
     fluid_kernels = fluid_phase(torch, dev, points, specs, exact, wall)
     clock("phase 28")
+    mesh_kernels = mesh_phase(torch, dev)
+    clock("phase 29")
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -5624,7 +6304,7 @@ def main() -> None:
         "bound_ms": bounds[B0][0], "bound_by": bounds[B0][1],
         "library_ms": None}] + serve_kernels + moe_kernels
         + train_kernels + het_kernels + experiment_kernels
-        + zoo_kernels + fluid_kernels}))
+        + zoo_kernels + fluid_kernels + mesh_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

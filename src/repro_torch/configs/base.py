@@ -92,15 +92,29 @@ class ModelConfig:
 
 
 def resolve_for_tp(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """Fill the TP-resolution fields for one device (``tp <= 1``): heads
-    unpadded, KV heads as published.  Tensor parallelism (head padding,
-    KV expansion) comes with the port's multi-card slice."""
-    if tp > 1:
-        raise NotImplementedError(
-            "resolve_for_tp with tp > 1 (head padding / KV expansion) comes "
-            "with the port's multi-card slice")
-    return dataclasses.replace(cfg, n_heads_padded=cfg.n_heads,
-                               n_kv_heads_eff=cfg.n_kv_heads)
+    """Pad Q heads to a multiple of tp; expand KV heads so the cache shards.
+
+    The JAX package's rule (``repro.configs.base.resolve_for_tp``) field
+    for field.  Its docstring says the numerics are unchanged, but its
+    ``gqa_init`` draws random weights for every padded or expanded head,
+    and so does the port's: a resolved config is a model of its own, and
+    the two sides of a comparison take the same resolved config.
+    """
+    if tp <= 1:
+        return dataclasses.replace(cfg, n_heads_padded=cfg.n_heads,
+                                   n_kv_heads_eff=cfg.n_kv_heads)
+    pad = math.ceil(cfg.n_heads / tp) * tp
+    kv = cfg.n_kv_heads
+    if kv % tp == 0:
+        kv_eff = kv
+    elif tp % kv == 0:
+        kv_eff = tp
+    else:                        # fall back to replication (no expansion)
+        kv_eff = kv
+    # GQA grouping must stay aligned: q-per-kv must divide evenly
+    if kv_eff and pad % kv_eff:
+        kv_eff = kv
+    return dataclasses.replace(cfg, n_heads_padded=pad, n_kv_heads_eff=kv_eff)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,16 @@ its q and k heads (``qk_nope + qk_rope`` dims) and v heads
 Decode caches the latent and the rope key and attends in latent space
 (``wk_b`` folded into q, ``wv_b`` applied after), in plain torch as the
 JAX package does.
+
+Under tensor parallelism (a mesh whose ``model`` axis has tp > 1; see
+``distributed.sharding``) each rank holds whole heads: the columns of
+``wq``, ``wk``, ``wv`` and the rows of ``wo`` of its H/tp Q heads and,
+where tp divides them, of its KV heads (the cache holds those), else of
+every KV head (the cache holds all of them, and each rank attends with
+the KV heads of its Q heads).  ``q_norm`` and ``k_norm`` are replicated.
+The GQA functions then return this rank's partial sum of the output
+projection; the caller reduces it over ``model``
+(``models.transformer``).
 """
 from __future__ import annotations
 
@@ -30,6 +40,8 @@ import torch
 
 import torch.nn.functional as F
 
+from ..distributed import collectives as coll
+from ..distributed.sharding import axis_index, axis_size
 from ..kernels.flash_attention.kernel import HEAD_DIMS
 from ..kernels.flash_attention.ops import flash_attention
 from .common import Params, apply_rope, dense_init, rmsnorm
@@ -92,11 +104,16 @@ def gqa_init(gen: torch.Generator, cfg, dtype, device: torch.device
 
 
 def _project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """q, k, v (B, S, heads, hd) of this rank's heads (every head on one
+    device)."""
     B, S, _ = x.shape
-    H, Hkv, hd = cfg.heads, cfg.kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, -1, hd)
+    k, v = x @ p["wk"], x @ p["wv"]
+    if k.shape[-1] < cfg.kv_heads * hd and cfg.kv_heads % axis_size("model"):
+        # KV columns split inside heads: every rank takes all of them
+        k, v = (coll.all_gather(t, "model", dim=-1) for t in (k, v))
+    k, v = k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -105,10 +122,27 @@ def _project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
+def _kv_of_local_q(cfg, n_q: int, k: torch.Tensor, v: torch.Tensor):
+    """The KV heads that this rank's ``n_q`` Q heads attend with: k and v
+    as they are where the KV heads are split with the Q heads (or on one
+    device); where this rank holds every KV head, those of its Q heads
+    (contiguous groups, else one KV head per Q head)."""
+    tp = axis_size("model")
+    if tp == 1 or k.shape[2] * tp == cfg.kv_heads:
+        return k, v
+    g = cfg.heads // cfg.kv_heads
+    first = axis_index("model") * n_q
+    if n_q % g == 0 and first % g == 0:
+        sel = slice(first // g, (first + n_q) // g)
+    else:
+        sel = torch.arange(first, first + n_q, device=k.device) // g
+    return k[:, :, sel], v[:, :, sel]
+
+
 def gqa_cache_init(cfg, batch: int, s_max: int, window: int, dtype,
                    device: torch.device) -> Params:
     s_buf = min(window, s_max) if window else s_max
-    shape = (batch, s_buf, cfg.kv_heads, cfg.hd)
+    shape = (batch, s_buf, cfg.kv_heads, cfg.hd)     # every KV head
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -120,7 +154,8 @@ def _gqa_seq(p: Params, cfg, x: torch.Tensor, window: int
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
-    ctx = attention_ctx(q, k, v, cfg.hd ** -0.5, window=window)
+    ctx = attention_ctx(q, *_kv_of_local_q(cfg, q.shape[2], k, v),
+                        cfg.hd ** -0.5, window=window)
     return ctx.reshape(B, S, -1) @ p["wo"], k, v
 
 
@@ -181,14 +216,16 @@ def gqa_decode(p: Params, cfg, x: torch.Tensor, cache: Params, pos: int,
         valid = (entry_pos >= max(0, pos - window + 1)) & (entry_pos >= 0)
     else:
         valid = idx <= pos
-    Hkv, hd, H = cfg.kv_heads, cfg.hd, cfg.heads
+    hd, H = cfg.hd, q.shape[2]
+    kk, vv = _kv_of_local_q(cfg, H, ck, cv)
+    Hkv = kk.shape[2]
     g = H // Hkv
     qg = q.reshape(B, 1, Hkv, g, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, kk).float()
     scores = (scores * hd ** -0.5).masked_fill(
         ~valid, torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
-    ctx = torch.einsum("bkgst,btkd->bskgd", probs, cv).reshape(B, 1, H * hd)
+    probs = torch.softmax(scores, dim=-1).to(vv.dtype)
+    ctx = torch.einsum("bkgst,btkd->bskgd", probs, vv).reshape(B, 1, H * hd)
     return ctx @ p["wo"], {"k": ck, "v": cv}
 
 

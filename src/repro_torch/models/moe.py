@@ -33,8 +33,25 @@ the same bits.  Without a backward (serving) the gather keeps the
 reference's one clamp, which costs two kernels a layer fewer than the
 spread: ~2 ms of a ~60 ms granite decode step on an H100.
 
-The expert-parallel ``moe_apply_a2a`` needs a multi-device mesh and comes
-with the mesh slice of the port.
+On a mesh (``distributed.sharding.use_mesh``) every function takes this
+rank's local tensors.  ``moe_apply`` dispatches as the JAX package's
+does: the expert-parallel ``moe_apply_a2a`` when the mesh's ``model``
+axis has more than one rank and the sequence (S > 1) splits over it,
+else the scatter path.  ``moe_apply_a2a`` is the JAX package's
+``shard_map`` body run eagerly on each rank's (batch over ``data``,
+sequence over ``model``) token block: local routing and capacity
+(``c_send``), one ``all_to_all`` there and one back over ``model``
+(``distributed.collectives``), the rank's E/tp experts (padded to
+``E_pad`` with dummy experts behind ``-1e30`` logits where tp does not
+divide E), and the aux term's mean over every axis.  Its per-rank
+capacity drops other pairs than the global scatter: it is a different
+computation wherever pairs drop, as in the JAX package.  On a mesh the
+scatter path (decode, S = 1) gathers every token (over ``data``, and the
+sequence over ``model`` where it is split), routes and slots them as on
+one device, runs this rank's experts (``maybe_shard(buf, "model", ...)``;
+with tp not dividing E, every expert on this rank's slice of F, summed
+over ``model``) and all-gathers the expert outputs, so each rank
+combines exactly what one device would.
 """
 from __future__ import annotations
 
@@ -43,8 +60,17 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as coll
+from ..distributed.sharding import (BATCH_AXES, active_mesh, axis_index,
+                                    axis_size, maybe_shard, use_mesh)
 from ..kernels.moe_gmm.ops import expert_matmul
 from .common import Params, dense_init, randn
+
+# Dispatch implementation: 'auto' takes the all-to-all expert-parallel
+# path on a mesh whose 'model' axis splits the sequence (prefill), the
+# scatter path otherwise (decode, one device); 'scatter' pins the latter.
+MOE_IMPL = "auto"
+ALL_AXES = ("pod", "data", "model")
 
 
 def moe_init(gen: torch.Generator, cfg, dtype, device: torch.device
@@ -80,36 +106,71 @@ def _router(p: Params, cfg, xf: torch.Tensor):
     return top_p, top_e, aux
 
 
-def route(p: Params, cfg, x: torch.Tensor):
-    """Routing and slotting of x (B, S, D).  Returns ``(top_p (T, K),
-    slot (T*K,), keep (T*K,), C, aux)``: the (token, k) pair i goes to
-    row ``slot[i]`` of the flattened (E*C, D) buffer when ``keep[i]``, and
-    to the trash row E*C when its expert is already full."""
-    B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
-    T = B * S
-    C = _capacity(T, cfg)
-    top_p, top_e, aux = _router(p, cfg, x.reshape(T, D))
-    # rank of each (token, k) within its expert, in token order
-    flat_e = top_e.reshape(-1)                               # (T*K,)
+def _local_rank_in_expert(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """Rank of each (token, k) entry within its expert, in entry order."""
+    n = flat_e.shape[0]
     order = torch.argsort(flat_e, stable=True)               # by expert
     sorted_e = flat_e[order]
     # where each expert's segment starts: the JAX package's exclusive
     # cumsum of the bincount, found without the host sync that a CUDA
     # bincount makes to size its output
     seg_starts = torch.searchsorted(
-        sorted_e, torch.arange(E, device=x.device, dtype=sorted_e.dtype))
-    ranks_sorted = torch.arange(T * K, device=x.device) - seg_starts[sorted_e]
-    ranks = torch.empty_like(ranks_sorted).scatter_(0, order, ranks_sorted)
+        sorted_e, torch.arange(E, device=flat_e.device, dtype=sorted_e.dtype))
+    ranks_sorted = torch.arange(n, device=flat_e.device) - seg_starts[sorted_e]
+    return torch.empty_like(ranks_sorted).scatter_(0, order, ranks_sorted)
+
+
+def route(p: Params, cfg, x: torch.Tensor):
+    """Routing and slotting of x (B, S, D).  Returns ``(top_p (T, K),
+    slot (T*K,), keep (T*K,), C, aux)``: the (token, k) pair i goes to
+    row ``slot[i]`` of the flattened (E*C, D) buffer when ``keep[i]``, and
+    to the trash row E*C when its expert is already full."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    T = B * S
+    C = _capacity(T, cfg)
+    top_p, top_e, aux = _router(p, cfg, x.reshape(T, D))
+    flat_e = top_e.reshape(-1)                               # (T*K,)
+    ranks = _local_rank_in_expert(flat_e, E)
     keep = ranks < C                                         # overflow drops
     slot = torch.where(keep, flat_e * C + ranks, E * C)      # trash row
     return top_p, slot, keep, C, aux
 
 
-def moe_apply_scatter(p: Params, cfg, x: torch.Tensor
+def _swiglu_experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wo: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU expert FFN batched over experts, buf (E, C, D)."""
+    gate = F.silu(expert_matmul(buf, wg))
+    up = expert_matmul(buf, wu)
+    return expert_matmul(gate * up, wo)
+
+
+def _expert_ffn(p: Params, cfg, buf: torch.Tensor) -> torch.Tensor:
+    """The expert FFN of the whole (E, C, D) buffer, which every rank of a
+    mesh holds alike: the rank's E/tp experts, their outputs all-gathered
+    over 'model'; where tp does not divide E, every expert on this rank's
+    slice of F, the output's partial sums reduced over 'model'."""
+    tp = axis_size("model")
+    if tp > 1 and cfg.n_experts % tp == 0:
+        buf = maybe_shard(buf, "model", None, None)
+        return coll.all_gather(_swiglu_experts(buf, p["wi_gate"], p["wi_up"],
+                                               p["wo"]), "model", dim=0)
+    out = _swiglu_experts(buf, p["wi_gate"], p["wi_up"], p["wo"])
+    return coll.all_reduce(out, "model") if tp > 1 else out
+
+
+def moe_apply_scatter(p: Params, cfg, x: torch.Tensor,
+                      seq_sharded: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global sort + scatter dispatch.  x: (B, S, D) -> (out (B, S, D),
-    aux loss scalar)."""
+    aux loss scalar).  On a mesh x is this rank's batch block (and, with
+    ``seq_sharded``, its sequence block over 'model'): every token is
+    gathered first, and this rank's block of the output returned."""
+    on_mesh = active_mesh() is not None
+    if on_mesh:
+        if seq_sharded:
+            x = coll.all_gather(x, "model", dim=1)
+        x = coll.all_gather(x, BATCH_AXES, dim=0)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = B * S
@@ -123,9 +184,7 @@ def moe_apply_scatter(p: Params, cfg, x: torch.Tensor
     buf = buf[: E * C].reshape(E, C, D)
 
     # expert FFN (SwiGLU), batched over experts
-    gate = F.silu(expert_matmul(buf, p["wi_gate"]))
-    up = expert_matmul(buf, p["wi_up"])
-    out_buf = expert_matmul(gate * up, p["wo"])
+    out_buf = _expert_ffn(p, cfg, buf)
 
     # combine: a dropped pair reads a row that the where() zeroes -- with
     # a backward, the row of its index mod E*C (see the module docstring)
@@ -137,15 +196,120 @@ def moe_apply_scatter(p: Params, cfg, x: torch.Tensor
         rows = slot.clamp_max(E * C - 1)
     gathered = torch.where(keep[:, None], out_flat[rows], 0.0)
     weighted = gathered * top_p.reshape(-1, 1).to(x.dtype)
-    out = weighted.reshape(T, K, D).sum(dim=1)
-    return out.reshape(B, S, D), aux
+    out = weighted.reshape(T, K, D).sum(dim=1).reshape(B, S, D)
+    if on_mesh:
+        out = maybe_shard(out, BATCH_AXES, "model" if seq_sharded else None,
+                          None)
+    return out, aux
 
 
-def moe_apply(p: Params, cfg, x: torch.Tensor
+def route_local(p: Params, cfg, x: torch.Tensor):
+    """The all-to-all path's routing of this rank's token block x (b, s,
+    D): the router over E experts padded to ``E_pad`` (a multiple of the
+    'model' axis) with ``-1e30`` logits, the aux term from the per-expert
+    means averaged over every mesh axis, and slots under the local
+    capacity ``c_send``.  Returns ``(top_p (t, K), slot (t*K,), keep
+    (t*K,), c_send, E_pad, aux)``; pair i goes to row ``slot[i]`` of the
+    (E_pad*c_send, D) send buffer when ``keep[i]``."""
+    b, s, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    tp = axis_size("model")
+    E_pad = -(-E // tp) * tp
+    t = b * s
+    logits = x.reshape(t, D).float() @ p["router"]           # (t, E)
+    if E_pad > E:
+        logits = F.pad(logits, (0, E_pad - E), value=-1e30)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, K, dim=-1)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    # globally exact load-balance loss: average the per-expert vectors
+    # across shards BEFORE the product (== the unsharded computation)
+    me = coll.all_reduce(probs[:, :E].mean(0), ALL_AXES, "avg")
+    ce = coll.all_reduce(F.one_hot(top_e[:, 0], E_pad)[:, :E].float()
+                         .mean(0), ALL_AXES, "avg")
+    aux = E * torch.sum(me * ce)
+    c_send = max(4, -(-int(t * K * cfg.capacity_factor / E_pad) // 4) * 4)
+    flat_e = top_e.reshape(-1)
+    ranks = _local_rank_in_expert(flat_e, E_pad)
+    keep = ranks < c_send
+    slot = torch.where(keep, flat_e * c_send + ranks, E_pad * c_send)
+    return top_p, slot, keep, c_send, E_pad, aux
+
+
+def _a2a_experts(p: Params, cfg, E_pad: int):
+    """This rank's E_pad/tp experts' weights: as they lie where tp divides
+    E (sharded over 'model' by expert); else gathered over F, padded with
+    zero (dummy) experts to E_pad and sliced by the rank's index."""
+    wg, wu, wo = p["wi_gate"], p["wi_up"], p["wo"]
+    tp = axis_size("model")
+    if cfg.n_experts % tp == 0:
+        return wg, wu, wo
+    E_loc = E_pad // tp
+    lo = axis_index("model") * E_loc
+    pad = (0, 0, 0, 0, 0, E_pad - cfg.n_experts)
+    wg, wu = (F.pad(coll.all_gather(w, "model", dim=2), pad)
+              for w in (wg, wu))
+    wo = F.pad(coll.all_gather(wo, "model", dim=1), pad)
+    return wg[lo:lo + E_loc], wu[lo:lo + E_loc], wo[lo:lo + E_loc]
+
+
+def moe_apply_a2a(p: Params, cfg, x: torch.Tensor, mesh=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over 'model' with all-to-all, on this rank's
+    token block x (b, s, D) (the batch over the data axes, the sequence
+    over 'model') and its serving-layout weights: local routing and
+    capacity, one exchange to the experts' ranks, the rank's experts on
+    ``expert_matmul``, one exchange back.  Returns (out (b, s, D), aux),
+    the JAX ``moe_apply_a2a``'s shard of each.  ``mesh`` defaults to the
+    active one."""
+    with use_mesh(active_mesh() if mesh is None else mesh):
+        b, s, D = x.shape
+        K = cfg.experts_per_token
+        tp = axis_size("model")
+        t = b * s
+        top_p, slot, keep, c_send, E_pad, aux = route_local(p, cfg, x)
+        E_loc = E_pad // tp
+        src = x.reshape(t, D).repeat_interleave(K, dim=0)
+        send = torch.zeros((E_pad * c_send + 1, D), dtype=x.dtype,
+                           device=x.device)
+        send.index_copy_(0, slot, src)
+        send = send[:-1].reshape(tp, E_loc * c_send, D)
+        recv = coll.all_to_all(send, "model")
+        # recv[j] = my experts' tokens from model-peer j
+        buf = recv.reshape(tp, E_loc, c_send, D).transpose(0, 1) \
+            .reshape(E_loc, tp * c_send, D)
+        out_buf = _swiglu_experts(buf, *_a2a_experts(p, cfg, E_pad))
+        back = out_buf.reshape(E_loc, tp, c_send, D).transpose(0, 1) \
+            .reshape(tp, E_loc * c_send, D)
+        out_flat = coll.all_to_all(back, "model").reshape(E_pad * c_send, D)
+        gathered = torch.where(
+            keep[:, None], out_flat[slot.clamp_max(E_pad * c_send - 1)], 0.0)
+        weighted = gathered * top_p.reshape(-1, 1).to(x.dtype)
+        out = weighted.reshape(t, K, D).sum(dim=1)
+        return out.reshape(b, s, D), aux
+
+
+def math_prod(xs):
+    out = 1
+    for v in xs:
+        out *= v
+    return out
+
+
+def moe_apply(p: Params, cfg, x: torch.Tensor, seq_sharded: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).  On one device
-    the JAX ``moe_apply`` takes the scatter path, and so does this."""
-    return moe_apply_scatter(p, cfg, x)
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).  On a mesh x is
+    this rank's block (``seq_sharded``: its sequence split over 'model');
+    the all-to-all path runs where the JAX ``moe_apply`` takes it ('model'
+    > 1, S % tp == 0, S > 1), else the scatter path."""
+    tp = axis_size("model")
+    S = x.shape[1] * (tp if seq_sharded else 1)
+    if MOE_IMPL != "scatter" and tp > 1 and S % tp == 0 and S > 1:
+        if seq_sharded:
+            return moe_apply_a2a(p, cfg, x)
+        out, aux = moe_apply_a2a(p, cfg, maybe_shard(x, None, "model", None))
+        return coll.all_gather(out, "model", dim=1), aux
+    return moe_apply_scatter(p, cfg, x, seq_sharded)
 
 
 def moe_apply_dense_ref(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:

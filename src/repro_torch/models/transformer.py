@@ -18,6 +18,21 @@ Python loop over the periods (indexing a stacked weight is a view).
 Caches keep one buffer per layer (the JAX package's ``stacked=False``
 serving layout): ``{"body": {"b<i>": [per-period cache]}, "tail":
 {"t<i>": cache}, "pos": int}``.
+
+Serving on a mesh (``distributed.sharding.use_mesh``): every function
+takes and returns this rank's local tensors, placed by the JAX package's
+serving rules (``param_specs(fsdp=False)``, ``cache_specs``, the batch
+over the data axes).  With tensor parallelism (the ``model`` axis, tp >
+1; the GQA and MoE transformer only) the embedding is vocab-parallel
+(each rank looks up the ids in its vocab rows, zeros the rest, and the
+ranks sum: exactly one rank contributes each value), ``lm_head`` is split
+by vocab columns and the logits gathered before ``_mask_padded_vocab``,
+and a prefill whose sequence splits over ``model`` keeps the residual
+sequence-parallel (``SEQ_SHARD_ACTIVATIONS``): attention and a dense FFN
+all-gather the normed sequence first and reduce-scatter their output,
+the MoE's all-to-all takes its token block as it lies.  Elsewhere (decode,
+a sequence that does not split) the residual is whole on every rank of
+``model`` and each partial output is all-reduced.
 """
 from __future__ import annotations
 
@@ -26,6 +41,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import collectives as coll
+from ..distributed import sharding as shd
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
@@ -119,13 +136,28 @@ def _block_cache_init(cfg, kind: str, batch: int, s_max: int, dtype,
     raise ValueError(kind)
 
 
-def _ffn(p: Params, cfg, kind: str, x: torch.Tensor) -> torch.Tensor:
+def _tp_out(y: torch.Tensor, sp: bool) -> torch.Tensor:
+    """A partial output summed over 'model': reduce-scattered along the
+    sequence when the residual is sequence-parallel, else all-reduced."""
+    if shd.axis_size("model") == 1:
+        return y
+    return coll.reduce_scatter(y, "model", dim=1) if sp \
+        else coll.all_reduce(y, "model")
+
+
+def _sp_gather(x: torch.Tensor, sp: bool) -> torch.Tensor:
+    """The whole sequence of a sequence-parallel activation."""
+    return coll.all_gather(x, "model", dim=1) if sp else x
+
+
+def _ffn(p: Params, cfg, kind: str, x: torch.Tensor, sp: bool = False
+         ) -> torch.Tensor:
     """A block's FFN: the MoE for an ``attn`` block of an MoE config (its
     aux loss discarded at serving, as the JAX ``lm_prefill`` does), else a
     dense SwiGLU."""
     if kind == "attn" and cfg.is_moe:
-        return moe_mod.moe_apply(p, cfg, x)[0]
-    return swiglu(p, x)
+        return moe_mod.moe_apply(p, cfg, x, seq_sharded=sp)[0]
+    return _tp_out(swiglu(p, _sp_gather(x, sp)), sp)
 
 
 def _xlstm_cell(kind: str):
@@ -134,7 +166,8 @@ def _xlstm_cell(kind: str):
 
 
 def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
-                   cache: Params) -> Tuple[torch.Tensor, Params]:
+                   cache: Params, sp: bool = False
+                   ) -> Tuple[torch.Tensor, Params]:
     if kind in ("mlstm", "slstm"):
         y, state = _xlstm_cell(kind)(p["cell"], cfg,
                                      rmsnorm(h, p["ln"], cfg.norm_eps),
@@ -142,7 +175,9 @@ def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
         return h + y, state
     x = rmsnorm(h, p["ln1"], cfg.norm_eps)
     if kind == "attn":
-        y, cache = attn.gqa_prefill(p["attn"], cfg, x, cache, _window(cfg))
+        y, cache = attn.gqa_prefill(p["attn"], cfg, _sp_gather(x, sp), cache,
+                                    _window(cfg))
+        y = _tp_out(y, sp)
     elif kind == "mla":
         y, cache = attn.mla_prefill(p["attn"], cfg, x, cache)
     elif kind == "rec":
@@ -150,8 +185,8 @@ def _block_prefill(p: Params, cfg, kind: str, h: torch.Tensor,
     else:
         raise ValueError(kind)
     h = h + y
-    return h + _ffn(p["mlp"], cfg, kind, rmsnorm(h, p["ln2"], cfg.norm_eps)), \
-        cache
+    return h + _ffn(p["mlp"], cfg, kind, rmsnorm(h, p["ln2"], cfg.norm_eps),
+                    sp), cache
 
 
 def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
@@ -166,6 +201,7 @@ def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
     if kind == "attn":
         y, cache = attn.gqa_decode(p["attn"], cfg, x, cache, pos,
                                    _window(cfg))
+        y = _tp_out(y, False)
     elif kind == "mla":
         y, cache = attn.mla_decode(p["attn"], cfg, x, cache, pos)
     elif kind == "rec":
@@ -234,32 +270,48 @@ def init_stacked(make, n: int) -> Any:
     return out
 
 
+def _keep_tree(keep, path: tuple, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _keep_tree(keep, path + (k,), v) for k, v in tree.items()}
+    return keep(path, tree)
+
+
 def _index(tree: Any, j: int) -> Any:
     if isinstance(tree, dict):
         return {k: _index(v, j) for k, v in tree.items()}
     return tree[j]
 
 
-def init_lm_params(cfg, gen: torch.Generator, device: torch.device
-                   ) -> Params:
+def init_lm_params(cfg, gen: torch.Generator, device: torch.device,
+                   keep=None) -> Params:
     """Random weights drawn from ``gen`` on ``device`` (``meta`` makes the
-    shapes only), in the JAX package's layout and dtypes."""
+    shapes only), in the JAX package's layout and dtypes.  ``keep(path,
+    leaf)``, if given, maps each leaf as it is drawn (a layer's leaf under
+    ``("body", "b<i>", ...)`` before it is stacked): the sharded init keeps
+    this rank's block of it."""
     dt = dtype_of(cfg)
     period, full, tail = _period(cfg)
+    keep = keep or (lambda path, leaf: leaf)
+
+    def block(path, kind):
+        return _keep_tree(keep, path, _block_init(gen, cfg, kind, dt, device))
+
     params: Params = {
-        "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dt, device),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-        "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_padded, dt,
-                              device),
+        "embed": keep(("embed",), embed_init(gen, cfg.vocab_padded,
+                                             cfg.d_model, dt, device)),
+        "final_norm": keep(("final_norm",), torch.zeros(
+            (cfg.d_model,), dtype=dt, device=device)),
+        "lm_head": keep(("lm_head",), dense_init(
+            gen, cfg.d_model, cfg.vocab_padded, dt, device)),
     }
     if cfg.frontend == "vision":
-        params["vis_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dt,
-                                        device)
+        params["vis_proj"] = keep(("vis_proj",), dense_init(
+            gen, cfg.d_model, cfg.d_model, dt, device))
     params["body"] = {
         f"b{i}": init_stacked(
-            lambda: _block_init(gen, cfg, kind, dt, device), full)
+            lambda: block(("body", f"b{i}"), kind), full)
         for i, kind in enumerate(period)}
-    params["tail"] = {f"t{i}": _block_init(gen, cfg, kind, dt, device)
+    params["tail"] = {f"t{i}": block(("tail", f"t{i}"), kind)
                       for i, kind in enumerate(tail)}
     return params
 
@@ -275,6 +327,24 @@ def init_cache(cfg, batch: int, s_max: int, device: torch.device) -> Params:
                                             device)
                  for i, kind in enumerate(tail)},
         "pos": 0}
+
+
+def check_mesh(cfg) -> None:
+    """Raise where the active mesh's tensor parallelism does not cover
+    ``cfg``: tp > 1 serves the GQA transformer (dense or MoE FFN) only,
+    with its heads resolved for tp (``configs.resolve_for_tp``)."""
+    tp = shd.axis_size("model")
+    if tp == 1:
+        return
+    kinds = set(_period(cfg)[0]) | set(_period(cfg)[2])
+    if cfg.family == "encdec" or cfg.frontend != "none" or kinds != {"attn"}:
+        raise NotImplementedError(
+            f"tensor parallelism (model={tp}) serves the GQA / MoE "
+            f"transformer; {cfg.name} is of family {cfg.family!r} (layer "
+            f"kinds {sorted(kinds)}, frontend {cfg.frontend!r})")
+    if cfg.heads % tp:
+        raise ValueError(f"{cfg.heads} Q heads do not split over model={tp}: "
+                         f"resolve the config with resolve_for_tp(cfg, {tp})")
 
 
 # ---------------------------------------------------------------------------
@@ -339,15 +409,34 @@ def forward_hidden(params: Params, cfg, h: torch.Tensor,
     return h, aux
 
 
-def _embed_tokens(params: Params, cfg, batch) -> torch.Tensor:
+def _embed_tokens(params: Params, cfg, batch, sp: bool = False
+                  ) -> torch.Tensor:
     """The token embeddings of ``batch["tokens"]`` (B, S), and for the
     vision frontend the projected ``batch["image_embeds"]`` (B, F, D) in
-    front of them: (B, F + S, D)."""
-    h = params["embed"][batch["tokens"]]
+    front of them: (B, F + S, D).  Under tensor parallelism the lookup is
+    vocab-parallel; ``sp`` returns this rank's sequence block."""
+    tokens = batch["tokens"]
+    if shd.axis_size("model") > 1:
+        emb = params["embed"]                       # this rank's vocab rows
+        ids = tokens - shd.axis_index("model") * emb.shape[0]
+        mine = (ids >= 0) & (ids < emb.shape[0])
+        h = torch.where(mine[..., None], emb[ids.clamp(0, emb.shape[0] - 1)],
+                        0.0)
+        return _tp_out(h, sp)
+    h = params["embed"][tokens]
     if cfg.frontend == "vision" and "image_embeds" in batch:
         vis = batch["image_embeds"].to(h.dtype) @ params["vis_proj"]
         h = torch.cat([vis, h], dim=1)
     return h
+
+
+def _logits(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
+    """Masked logits of final-normed h; under tensor parallelism the
+    vocab columns are gathered first, so every rank holds them all."""
+    logits = h @ params["lm_head"]
+    if shd.axis_size("model") > 1:
+        logits = coll.all_gather(logits, "model", dim=-1)
+    return _mask_padded_vocab(cfg, logits)
 
 
 def lm_loss(params: Params, cfg, batch, mode: str = "scan",
@@ -387,15 +476,23 @@ def lm_prefill_hidden(params: Params, cfg, batch, cache: Params
     """Prefill the stack over ``batch["tokens"]`` (B, S), behind the
     image embeddings of a vision config's ``batch["image_embeds"]`` (B, F,
     D): returns the final-normed hidden states of every position (B,
-    F + S, D) and the populated cache."""
-    h = _embed_tokens(params, cfg, batch)
+    F + S, D) and the populated cache.  On a mesh: this rank's batch
+    block, every position."""
+    if shd.active_mesh() is not None:
+        check_mesh(cfg)
+    tp = shd.axis_size("model")
+    S = batch["tokens"].shape[1]
+    sp = (tp > 1 and shd.SEQ_SHARD_ACTIVATIONS and S % tp == 0 and S > 1)
+    h = _embed_tokens(params, cfg, batch, sp)
+    n = h.shape[1] * (tp if sp else 1)
 
     def step(p, kind, h, c):
-        return _block_prefill(p, cfg, kind, h, c)
+        return _block_prefill(p, cfg, kind, h, c, sp)
 
     h, new_cache = _run_stack(params, cfg, h, cache, step)
-    new_cache["pos"] = h.shape[1]
-    return rmsnorm(h, params["final_norm"], cfg.norm_eps), new_cache
+    new_cache["pos"] = n
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return _sp_gather(h, sp), new_cache
 
 
 def lm_prefill(params: Params, cfg, batch, cache: Params,
@@ -404,7 +501,7 @@ def lm_prefill(params: Params, cfg, batch, cache: Params,
     cache)."""
     _check_mode(mode)
     h, cache = lm_prefill_hidden(params, cfg, batch, cache)
-    return _mask_padded_vocab(cfg, h[:, -1:] @ params["lm_head"]), cache
+    return _logits(params, cfg, h[:, -1:]), cache
 
 
 def lm_decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
@@ -412,7 +509,7 @@ def lm_decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
     """One-token decode. tokens: (B, 1). Returns (logits, cache)."""
     _check_mode(mode)
     pos = cache["pos"]
-    h = params["embed"][tokens]
+    h = _embed_tokens(params, cfg, {"tokens": tokens})
 
     def step(p, kind, h, c):
         return _block_decode(p, cfg, kind, h, c, pos)
@@ -420,4 +517,4 @@ def lm_decode_step(params: Params, cfg, cache: Params, tokens: torch.Tensor,
     h, new_cache = _run_stack(params, cfg, h, cache, step)
     new_cache["pos"] = pos + 1
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    return _mask_padded_vocab(cfg, h @ params["lm_head"]), new_cache
+    return _logits(params, cfg, h), new_cache
