@@ -615,6 +615,11 @@ MESH_LIMIT_S = 600                      # the 4-rank spawn's hard limit
 # the a2a's aux term is NCCL's mean of 4 per-expert vectors against the
 # emulation's torch mean of the same 4: float32 sums in two orders
 MESH_AUX_RTOL = 1e-6
+# a decode's expert that the routing-replayed forced pass ranks below its
+# own top k must trail that pass's k-th router logit by at most this: the
+# logits are ~N(0, 1) (d^-1/2 router on a unit-RMS input), the 8th and 9th
+# of 128 lie ~0.04 apart, a routing fault (a wrong expert) ~1 below
+MESH_TIE_LOGIT_GAP = 0.25
 EXAMPLES = (
     ("torch_quickstart.py", ("--steps", "4"),
      ("oracle lower bound", "work exchange", "cache HIT")),
@@ -5243,14 +5248,14 @@ def mesh_attention_layer(torch, dev, mesh, cfg) -> dict:
 
 @contextlib.contextmanager
 def routes_seen(torch):
-    """Record each MoE layer call's top-k experts (T, K) as the model
-    runs."""
+    """Record each MoE layer call's ``(slot, keep, C)`` as the model
+    runs (no launch); ``seen_experts`` turns them into (T, K) experts."""
     from repro_torch.models import moe as moe_mod
     route, seen = moe_mod.route, []
 
     def recording(p, cfg, x):
         out = route(p, cfg, x)
-        seen.append(moe_mod._router(p, cfg, x.reshape(-1, x.shape[-1]))[1])
+        seen.append(out[1:4])
         return out
 
     moe_mod.route = recording
@@ -5260,20 +5265,30 @@ def routes_seen(torch):
         moe_mod.route = route
 
 
+def seen_experts(torch, seen, K: int) -> list:
+    """The (T, K) experts of each recorded call (-1 where a pair
+    dropped)."""
+    return [torch.where(keep, slot // C, -1).reshape(-1, K)
+            for slot, keep, C in seen]
+
+
 @contextlib.contextmanager
 def routes_replayed(torch, top_es):
     """Route each MoE layer call to the next of ``top_es`` (T, K) experts
     instead of its own top k: weights from its own float32 router (the
     replayed experts' probabilities, renormalised), slots in token order
-    under its capacity, as ``moe.route`` makes them."""
+    under its capacity, as ``moe.route`` makes them.  Yields the list of
+    each call's ``(router logits (T, E), replayed experts)``."""
     from repro_torch.models import moe as moe_mod
-    route, it = moe_mod.route, iter(top_es)
+    route, it, calls = moe_mod.route, iter(top_es), []
 
     def replayed(p, cfg, x):
         top_e = next(it)
         E = cfg.n_experts
         xf = x.reshape(-1, x.shape[-1])
-        probs = torch.softmax(xf.float() @ p["router"], dim=-1)
+        logits = xf.float() @ p["router"]
+        calls.append((logits, top_e))
+        probs = torch.softmax(logits, dim=-1)
         top_p = probs.gather(1, top_e)
         top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
         C = moe_mod._capacity(xf.shape[0], cfg)
@@ -5286,9 +5301,34 @@ def routes_replayed(torch, top_es):
 
     moe_mod.route = replayed
     try:
-        yield
+        yield calls
     finally:
         moe_mod.route = route
+
+
+def route_ties(torch, calls, K: int) -> dict:
+    """How near the replayed experts are to the forced pass's own choice:
+    over every (token, k) pair of ``routes_replayed``'s calls, the share
+    its own router ranks below its top k ("flipped"), the worst such rank
+    (1-based), and the largest gap from its k-th logit down to a flipped
+    expert's; beside them the median gap between its k-th and (k+1)-th
+    logits, the spacing a rounding has to bridge."""
+    ranks, gaps, spacing = [], [], []
+    for logits, top_e in calls:
+        srt, order = torch.sort(logits, dim=-1, descending=True)
+        rank = torch.empty_like(order).scatter_(
+            1, order, torch.arange(logits.shape[1], device=logits.device)
+            .expand_as(order))
+        ranks.append(rank.gather(1, top_e).flatten())
+        gaps.append((srt[:, K - 1:K] - logits.gather(1, top_e)).flatten())
+        spacing.append(srt[:, K - 1] - srt[:, K])
+    rank, gap = torch.cat(ranks), torch.cat(gaps)
+    flipped = rank >= K
+    return {"tie_flips": float(flipped.float().mean()),
+            "tie_worst_rank": int(rank.max()) + 1,
+            "tie_max_gap": float(gap[flipped].max()) if bool(flipped.any())
+            else 0.0,
+            "tie_spacing": float(torch.cat(spacing).median())}
 
 
 def forced_chunk(torch, model, params, cache, toks, P0: int):
@@ -5328,28 +5368,38 @@ def forced_chunk(torch, model, params, cache, toks, P0: int):
 
 
 def decode_against_forced(torch, model, params, local, s_max: int) -> dict:
-    """Prefill ``local`` and decode MESH_STEPS - 1 greedy tokens, keeping
-    each step's logits and each MoE layer's routing; then ``forced_chunk``
-    over the fed tokens twice: routing for itself (printed: the share of
-    (token, k) pairs it routes to other experts than the decode did, and
-    its relative RMS), and with the decode's routing replayed (held at
-    ``LOGIT_REL_RMS`` a step): a near-tied top-k choice that one bf16
-    rounding flips is another computation, not a decode error (as in
-    phase 17)."""
+    """Prefill ``local`` and decode MESH_STEPS - 1 greedy tokens through
+    the step factories (their walls, warm: the prefill's and the decode
+    steps'), keeping each step's logits and each MoE layer's routing;
+    then ``forced_chunk`` over the fed tokens twice: routing for itself
+    (printed: the share of (token, k) pairs it routes to other experts
+    than the decode did, and its relative RMS), and with the decode's
+    routing replayed (held at ``LOGIT_REL_RMS`` a step): a near-tied
+    top-k choice that one bf16 rounding flips is another computation, not
+    a decode error (as in phase 17).  That every replayed expert is such
+    a near tie is held by ``route_ties`` (``MESH_TIE_LOGIT_GAP``)."""
     from repro_torch.train.serve import make_decode_step, make_prefill_step
     cfg = model.cfg
     L, K, V = cfg.n_layers, cfg.experts_per_token, cfg.vocab_size
     cache = model.init_cache(MESH_B, s_max, local["tokens"].device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     logits, cache = make_prefill_step(model)(params, local, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
     decode = make_decode_step(model)
     served, fed = [], []
     tok = logits[:, -1].argmax(-1, keepdim=True)
+    t0 = time.perf_counter()
     with routes_seen(torch) as seen:
         for _ in range(MESH_STEPS - 1):
             fed.append(tok)
             logits, cache = decode(params, cache, tok)
             served.append(logits[:, -1, :V].float())
             tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    seen = seen_experts(torch, seen, K)
     served, fed = torch.stack(served, 1), torch.cat(fed, 1)
     B, n = fed.shape
     # the decode's experts of each layer, in the forced pass's token order
@@ -5357,13 +5407,17 @@ def decode_against_forced(torch, model, params, local, s_max: int) -> dict:
                .reshape(B * n, K) for j in range(L)]
     with routes_seen(torch) as own:
         free = forced_chunk(torch, model, params, cache, fed, MESH_PROMPT)
-    with routes_replayed(torch, decoded):
+    own = seen_experts(torch, own, K)
+    with routes_replayed(torch, decoded) as calls:
         forced = forced_chunk(torch, model, params, cache, fed, MESH_PROMPT)
     flips = sum(int((torch.sort(a, 1)[0] != torch.sort(b, 1)[0]).sum())
                 for a, b in zip(own, decoded)) / (L * B * n * K)
-    return {"step_rms": rel_rms(served, forced, (0, 2)).cpu(),
+    return {"prefill_s": prefill_s, "gen_s": prefill_s + decode_s,
+            "step_rms": rel_rms(served, forced, (0, 2)).cpu(),
             "free_rms": rel_rms(served, free, (0, 2)).cpu(),
             "routed_differently": flips,
+            "dropped_in_decode": sum(int((e < 0).sum()) for e in decoded),
+            **route_ties(torch, calls, K),
             "forced_agree": float((forced.argmax(-1)[:, :-1]
                                    == fed[:, 1:]).float().mean()),
             "served_finite": bool(torch.isfinite(served).all())}
@@ -5373,15 +5427,16 @@ def mesh_serve(torch, dev, mesh, cfg, out: str) -> dict:
     """29 (c) on a rank: ``cfg`` served with the sharded init through
     ``greedy_generate`` under the mesh; launches (zeroed just before the
     counted generate, read just after) by kernel, design and shape, the
-    collectives of a generate, memory, walls, one profiled generate, and
-    the decode held against ``forced_chunk``.  Rank 0 keeps the first
+    collectives of a generate, memory, one profiled generate, then the
+    step factories' warm walls and the decode held against
+    ``forced_chunk``.  Rank 0 keeps the first
     flash call's inputs in ``out`` for the kernel line."""
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import build_model
-    from repro_torch.train.serve import greedy_generate, make_prefill_step
+    from repro_torch.train.serve import greedy_generate
     model = build_model(cfg)
     s_max = MESH_PROMPT + MESH_STEPS
     rec = {}
@@ -5420,17 +5475,6 @@ def mesh_serve(torch, dev, mesh, cfg, out: str) -> dict:
                 t.cpu() if isinstance(t, torch.Tensor) else t
                 for t in call)}, os.path.join(out, "flash-call.pt"))
         del first
-        # walls: the prefill alone, then the generate (warm, one run each)
-        prefill = make_prefill_step(model)
-        local = shd.shard_batch(batch)
-        t0 = time.perf_counter()
-        prefill(params, local, model.init_cache(MESH_B, s_max, dev))
-        torch.cuda.synchronize()
-        rec["prefill_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        generate()
-        torch.cuda.synchronize()
-        rec["gen_s"] = time.perf_counter() - t0
         # one profiled generate: the device's busy share and NCCL's share
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -5443,8 +5487,10 @@ def mesh_serve(torch, dev, mesh, cfg, out: str) -> dict:
         rec["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
         rec["nccl_ms"] = sum(e.self_device_time_total for e in events
                              if "nccl" in e.key.lower()) / 1e3
-        # the decode against the teacher-forced continuation
-        rec.update(decode_against_forced(torch, model, params, local, s_max))
+        # the warm walls, and the decode against the teacher-forced
+        # continuation
+        rec.update(decode_against_forced(torch, model, params,
+                                         shd.shard_batch(batch), s_max))
         del params
     torch.cuda.empty_cache()
     return rec
@@ -5566,10 +5612,11 @@ def mesh_report(torch, recs: list, cfg, tp: int) -> None:
         print(f"  (c) rank {r}: init {rec['init_s']:.2f} s, weights "
               f"{rec['param_gb']:.3f} GB, init peak {rec['init_peak_gb']:.3f}"
               f" GB, generate peak {rec['gen_peak_gb']:.3f} GB; first "
-              f"generate {rec['first_s']:.3f} s; warm prefill "
-              f"{rec['prefill_s'] * 1e3:.3f} ms ({prompt_tps:.1f} prompt "
-              f"tok/s), decode {dec_ms:.3f} ms a step, generate "
-              f"{rec['gen_s'] * 1e3:.3f} ms ({new_tps:.2f} new tok/s); "
+              f"generate {rec['first_s']:.3f} s; warm, through the step "
+              f"factories: prefill {rec['prefill_s'] * 1e3:.3f} ms "
+              f"({prompt_tps:.1f} prompt tok/s), decode {dec_ms:.3f} ms a "
+              f"step, both {rec['gen_s'] * 1e3:.3f} ms ({new_tps:.2f} new "
+              f"tok/s); "
               f"profiled generate {rec['prof_wall_s'] * 1e3:.3f} ms, device "
               f"busy {rec['busy_ms']:.3f} ms ({100 * busy:.2f}%), NCCL "
               f"{rec['nccl_ms']:.3f} ms ({100 * nccl:.2f}% of device time)")
@@ -5588,6 +5635,14 @@ def mesh_report(torch, recs: list, cfg, tp: int) -> None:
               f"{rec['routed_differently']:.4f} of (token, k) pairs to "
               f"other experts, relative RMS max "
               f"{float(rec['free_rms'].max()):.3e}")
+        print(f"      the replayed experts in the replayed pass's own "
+              f"router: {rec['tie_flips']:.4f} of pairs below its top "
+              f"{c.experts_per_token}, the worst at rank "
+              f"{rec['tie_worst_rank']}, at most {rec['tie_max_gap']:.4f} "
+              f"below its k-th logit (limit {MESH_TIE_LOGIT_GAP}; its k-th "
+              f"and next logits lie a median {rec['tie_spacing']:.4f} "
+              f"apart); pairs dropped in the decode "
+              f"{rec['dropped_in_decode']}")
         problems = []
         if rec["flash_shapes"] != want_flash:
             problems.append(f"flash launches {rec['flash_shapes']}")
@@ -5604,6 +5659,12 @@ def mesh_report(torch, recs: list, cfg, tp: int) -> None:
             problems.append(f"tokens of shape {tuple(toks0.shape)}")
         if not rec["served_finite"] or float(rms.max()) > LOGIT_REL_RMS:
             problems.append(f"decode relative RMS {float(rms.max()):.3e}")
+        if rec["tie_max_gap"] > MESH_TIE_LOGIT_GAP or \
+                rec["dropped_in_decode"]:
+            problems.append(f"a replayed expert {rec['tie_max_gap']:.4f} "
+                            f"below the k-th logit, "
+                            f"{rec['dropped_in_decode']} decode pairs "
+                            f"dropped")
         if problems:
             fail(f"phase 29 (c) rank {r}: " + "; ".join(problems))
 

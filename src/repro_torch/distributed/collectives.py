@@ -82,14 +82,6 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
-# torch >= 2.12 names the tensor forms *_single; earlier ones do not have
-# them (the card's machine may run either)
-_gather_into = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-_scatter_from = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-
-
 def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
     groups = _groups(axis)
     if not groups:
@@ -122,7 +114,7 @@ def all_gather(x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
     for n, group in _groups(axes):
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((n * src.shape[0], *src.shape[1:]))
-        _gather_into(out, src, group=group)
+        dist.all_gather_into_tensor(out, src, group=group)
         _tally("all_gather", n, _nbytes(src), _nbytes(out))
         x = out.movedim(0, dim)
     return x.contiguous()
@@ -137,7 +129,7 @@ def reduce_scatter(x: torch.Tensor, axes: Axes, dim: int = 0
                              f"dim of {x.shape[dim]}")
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
-        _scatter_from(out, src, group=group)
+        dist.reduce_scatter_tensor(out, src, group=group)
         _tally("reduce_scatter", n, _nbytes(src), _nbytes(out))
         x = out.movedim(0, dim)
     return x.contiguous()

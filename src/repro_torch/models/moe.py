@@ -290,6 +290,10 @@ def moe_apply_a2a(p: Params, cfg, x: torch.Tensor, mesh=None
 
 
 def math_prod(xs):
+    """The product of ``xs``.  The JAX package's ``moe_apply_a2a`` keeps
+    the batch whole (``batch_ok``) where the data axes' product does not
+    divide it; the port shards it always, and ``train.serve``'s
+    ``greedy_generate`` raises for such a batch."""
     out = 1
     for v in xs:
         out *= v

@@ -7,7 +7,11 @@ captured decode step is later work).
 On a mesh (``distributed.sharding.use_mesh``) ``greedy_generate`` takes
 the whole prompt batch on every rank, runs each step on this rank's
 block of it (the batch over the data axes) and returns the whole token
-array on every rank; the cache it takes and returns is this rank's.
+array on every rank; the cache it takes and returns is this rank's.  A
+batch that the data axes do not divide raises: the JAX package keeps
+such a batch whole on every data rank (``batch_specs(batch_shardable=
+False)``, the sequence of its cache over 'data'), which the port does
+not do.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ from typing import Callable
 import torch
 
 from ..distributed import collectives as coll
-from ..distributed.sharding import BATCH_AXES, active_mesh, shard_batch
+from ..distributed.sharding import (BATCH_AXES, active_mesh, axis_size,
+                                    shard_batch)
+from ..models.moe import math_prod
 
 
 def make_prefill_step(model, mode: str = "unroll") -> Callable:
@@ -36,6 +42,13 @@ def greedy_generate(model, params, prompt_batch, cache, steps: int,
     """Returns ``(tokens (B, steps), cache)``."""
     mesh = active_mesh()
     if mesh is not None:
+        dp = math_prod(axis_size(a) for a in BATCH_AXES)
+        B = next(iter(prompt_batch.values())).shape[0]
+        if B % dp:
+            raise ValueError(
+                f"greedy_generate on a mesh shards the batch over its data "
+                f"axes: a batch of {B} does not split over {dp} data ranks "
+                f"(a batch kept whole on every data rank is not supported)")
         prompt_batch = shard_batch(prompt_batch)
     prefill = make_prefill_step(model, mode)
     decode = make_decode_step(model, mode)

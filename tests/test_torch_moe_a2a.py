@@ -17,6 +17,10 @@ The reference runs ``moe_apply_a2a`` jitted under ``jax.set_mesh`` on a
 * drop-free, E 8 at capacity factor 8 (the reference test's setting),
   also against the port's own scatter path.
 
+With ``MOE_IMPL = "scatter"`` the same ``moe_apply`` call takes the
+scatter path on the mesh (no all-to-all) and gives the global scatter's
+block in every case.
+
 Outputs within 1e-5 in float32, the aux term within 1e-6, the dropped
 pairs counted equal (the reference's counted from its own
 ``_local_rank_in_expert`` on each block).
@@ -185,3 +189,14 @@ def test_drop_free_a2a_matches_the_scatter_path(runs):
         c = rec["cases"]["qwen3-e8-cf8"]
         gap = float((c["out"] - _block(c["scatter"], d, m)).abs().max())
         assert gap <= OUT_TOL, gap
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_moe_impl_scatter_pins_the_scatter_path_on_the_mesh(runs, case):
+    got, _ = runs
+    for rec in got:
+        d, m = rec["coord"]
+        c = rec["cases"][case]
+        assert not any(k.startswith("all_to_all") for k in c["pinned_counts"])
+        gap = float((c["pinned"] - _block(c["scatter"], d, m)).abs().max())
+        assert gap <= OUT_TOL, (rec["coord"], gap)

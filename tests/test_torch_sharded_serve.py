@@ -284,3 +284,13 @@ def test_world_size_one_is_the_unsharded_path_bitwise(runs, arch):
     for k in plain["cache"]:
         assert torch.equal(rec["cache"][k], plain["cache"][k]), k
     assert rec["sharded_init_equal"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_a_batch_the_data_axes_do_not_split_raises(runs, arch):
+    """One request on the (data 2, model 2) mesh: ``greedy_generate``
+    raises before it runs, naming the batch and the data ranks."""
+    got, _, _ = runs
+    for rec in got[arch]:
+        assert "batch of 1 does not split over 2 data ranks" in \
+            rec["one_request_error"], rec["coord"]

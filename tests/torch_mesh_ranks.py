@@ -138,6 +138,12 @@ def serve_rank(rank: int, out: str, archs, model_axis: int) -> None:
             gen, _ = greedy_generate(model, params, {"tokens": toks},
                                      model.init_cache(SERVE_B, S_MAX, "cpu"),
                                      SERVE_NEW)
+            if shd.axis_size("data") > 1:
+                try:
+                    greedy_generate(model, params, {"tokens": toks[:1]},
+                                    None, 2)
+                except ValueError as err:
+                    rec["one_request_error"] = str(err)
         rec.update(logits=logits, toks_local=toks_local, toks=gen,
                    cache=flat_cache(cache), prefill_counts=counts)
         world = mesh.mesh.numel()
@@ -186,9 +192,18 @@ def moe_rank(rank: int, out: str) -> None:
             dropped = coll.all_reduce((~keep).sum(), ("data", "model"))
             via_apply = moe_mod.moe_apply(local_p, cfg, x_loc,
                                           seq_sharded=True)[0]
+            moe_mod.MOE_IMPL = "scatter"
+            try:
+                coll.reset_counts()
+                pinned = moe_mod.moe_apply(local_p, cfg, x_loc,
+                                           seq_sharded=True)[0]
+                pinned_counts = coll.counts()
+            finally:
+                moe_mod.MOE_IMPL = "auto"
         recs[case] = {"out": got, "aux": aux, "dropped": int(dropped),
                       "counts": counts,
                       "apply_equal": bool(torch.equal(via_apply, got)),
+                      "pinned": pinned, "pinned_counts": pinned_counts,
                       "scatter": moe_mod.moe_apply_scatter(p, cfg, x)[0]}
     torch.save({"coord": list(mesh.get_coordinate()), "cases": recs},
                os.path.join(out, f"moe-r{rank}.pt"))
