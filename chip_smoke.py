@@ -374,7 +374,39 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     one kernel-line entry each.  With fewer cards: (a) emulated on card 0,
     the kernel against the plain version; (c) at world size 1, depth 12;
     (d) at those shapes; and one line naming the checks that need 4
-    cards.
+    cards;
+30. the sharded training step, granite-moe-3b-a800m (resolved for tp 2:
+    its 24 / 8 heads split).  With 4 cards or more, 4 NCCL ranks in one
+    world hold two meshes, (data 4, model 1) and (data 2, model 2): (a)
+    one GQA + MoE block at full width, (2, 4096, 1536) bf16, trained on
+    (data 2, model 2) as the training step runs it (each rank's
+    training-layout blocks gathered by their specs, its (batch,
+    sequence) block, the residual sequence-parallel, ``moe_apply_a2a``,
+    ``train.loop``'s gradient reduction) against a plain one-process
+    emulation of the 4 ranks on card 0 (each rank's heads, each block's
+    routing and capacity, the exchange by indexing, the plain kernels,
+    autograd): the pairs routed differently at most 2e-2, then on the
+    mesh's routing replayed the loss and the aux term within 1e-3
+    relative and each gradient leaf within a relative RMS of 2e-2; (b)
+    the model at its published width and depth (32 layers), bf16, with
+    the sharded init in the training layout (seed 0) and remat, 3 steps
+    of ``make_train_step`` on one repeated batch of structured tokens,
+    4 x 4096 on (data 4, model 1) and 2 x 4096 on (data 2, model 2):
+    every loss, aux and grad norm finite and the same on every rank, the
+    last loss below the first, every leaf (params and master weights)
+    that several ranks hold the same bits on each, flash and
+    ``expert_matmul`` launches by shape (all on ``tc``), and per rank
+    the init and step peaks, the warm step wall, tokens/s a card, NCCL's
+    share of device time and the device time outside it in one profiled
+    step, and the collectives a step by op and group size; (c) on card 0
+    alone, flash (forward, and its plain backward) and ``expert_matmul``
+    (every forward and backward launch shape) at each rank's shapes
+    against their bounds, plain versions and SDPA / ``torch.bmm``, one
+    kernel-line entry each.  With fewer cards: (a) the emulation's
+    kernel path against its plain version on card 0; (b) at world size 1
+    and depth 3, bit for bit the unsharded ``make_train_step`` after one
+    step; (c) at those shapes; and one line naming the checks that need
+    4 cards.
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
@@ -399,8 +431,9 @@ JSON line: run from the roots of two trees in turn, it compares their
 
     python3 chip_smoke.py --mesh
 
-builds the kernels and runs only phase 29 (on a machine with 4 cards:
-the NCCL mesh), then prints its kernel line and the result line.
+builds the kernels and runs only phases 29 and 30 (on a machine with 4
+cards: the NCCL meshes), then prints their kernel line and the result
+line.
 """
 from __future__ import annotations
 
@@ -620,6 +653,15 @@ MESH_AUX_RTOL = 1e-6
 # logits are ~N(0, 1) (d^-1/2 router on a unit-RMS input), the 8th and 9th
 # of 128 lie ~0.04 apart, a routing fault (a wrong expert) ~1 below
 MESH_TIE_LOGIT_GAP = 0.25
+# phase 30: the sharded training step.  granite over 4 cards: the batch
+# of the (data 4, model 1) mesh (1 x 4096 a rank, phase 18's step) and of
+# the (data 2, model 2) mesh, the steps, the spawn's hard limit; (a)'s
+# mesh and aux weight (lm_loss's); (b)'s depth on one card
+TRAIN_MESH_ARCH, TRAIN_MESH_S, TRAIN_MESH_STEPS = MOE_ARCH, 4096, 3
+TRAIN_MESH_B_DP, TRAIN_MESH_B_TP = 4, 2
+TRAIN_MESH_LIMIT_S = 300
+TRAIN_MESH_DP, TRAIN_MESH_TP, TRAIN_MESH_AUX_WEIGHT = 2, 2, 0.01
+TRAIN_MESH_ONE_CARD_DEPTH = 3
 EXAMPLES = (
     ("torch_quickstart.py", ("--steps", "4"),
      ("oracle lower bound", "work exchange", "cache HIT")),
@@ -4537,7 +4579,7 @@ def attention_bound(B, Sq, Sk, Hq, Hkv, dq, dv, causal, window):
 
 
 def zoo_flash_entry(torch, draw, path: str, launches: int, call,
-                    dims) -> tuple:
+                    dims, per: str = "a generate") -> tuple:
     """(ok, the kernels line's entry) for one flash shape of a served
     path: the path's first call at that shape replayed through the kernel
     and its plain version, held at ``FLASH_TOL`` and row by row at
@@ -4605,7 +4647,7 @@ def zoo_flash_entry(torch, draw, path: str, launches: int, call,
                                                            sdpa))
     bound, by = attention_bound(B, Sq, Sk, Hq, Hkv, dq, dv, causal, window)
     pad = "" if (dq, dv) == (d, d) else f" (heads {dq}/{dv} padded to {d})"
-    print(f"  flash_attention on {path}: {launches} launches a generate at "
+    print(f"  flash_attention on {path}: {launches} launches {per} at "
           f"({B}, {Sq}, {Sk}, {Hq}/{k.shape[2]}, {d}){pad} causal={causal} "
           f"window={window}: {'ok' if ok else 'FAIL'} max_abs_err {err:.3e} "
           f"(tol {tol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
@@ -5523,7 +5565,8 @@ def mesh_rank(rank: int, out: str, tp: int, depth: int) -> None:
     torch.save(rec, os.path.join(out, f"mesh-r{rank}.pt"))
 
 
-def gmm_entry(torch, dev, path: str, shape, launches: int) -> dict:
+def gmm_entry(torch, dev, path: str, shape, launches: int,
+              per: str = "a generate a rank") -> dict:
     """The kernels line's entry for ``expert_matmul`` at one (E, C, D, F)
     shape of a path, on N(0, 1) operands (weights scaled by D^-1/2): the
     kernel against its plain version (``GMM_TOL``), every launch on
@@ -5551,7 +5594,7 @@ def gmm_entry(torch, dev, path: str, shape, launches: int) -> dict:
         lambda: torch.bmm(buf, w)))
     bound, by, flops, _ = gmm_bound(E, C, D, F, 2)
     print(f"  expert_matmul on {path} {(E, C, D)}x{(E, D, F)} bf16, "
-          f"{launches} launches a generate a rank: {'ok' if ok else 'FAIL'} "
+          f"{launches} launches {per}: {'ok' if ok else 'FAIL'} "
           f"max_abs_err {err:.3e} (tol {tol}); kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
           f"torch.bmm {lib_ms:.4f} ms (kernel / torch.bmm "
@@ -5763,6 +5806,739 @@ def mesh_phase(torch, dev) -> list:
         gmm_entry(torch, dev, path, shape, n)
         for shape, n in sorted(rec["gmm_shapes"].items())]
     print(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the sharded training step
+# ---------------------------------------------------------------------------
+
+def layer_emulated_moe(torch, p, cfg, x, dp: int, tp: int, replay=None):
+    """``moe_apply_a2a`` of a (data ``dp``, model ``tp``) mesh in one
+    process, differentiable: each (data, model) block of x (B, S, D) (the
+    batch over data, the sequence over model) routed with its own
+    capacity ``c_send`` (with ``replay``, to the given (t, K) experts of
+    each block, the weights from its own router), the exchange within each
+    data group done by indexing, each owner's experts through the model's
+    expert op, and the aux term from the blocks' mean vectors.  Returns
+    (out (B, S, D), aux, [(top_e, keep)] a block)."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_mod
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    E_pad = -(-E // tp) * tp
+    E_loc = E_pad // tp
+    b, s = B // dp, S // tp
+    t = b * s
+    c_send = max(4, -(-int(t * K * cfg.capacity_factor / E_pad) // 4) * 4)
+    blocks, routes, mes, ces = [], [], [], []
+    for i in range(dp * tp):
+        d, m = divmod(i, tp)
+        xf = x[d * b:(d + 1) * b, m * s:(m + 1) * s].reshape(t, D)
+        logits = F.pad(xf.float() @ p["router"], (0, E_pad - E), value=-1e30)
+        probs = torch.softmax(logits, dim=-1)
+        top_e = torch.topk(probs, K, dim=-1)[1] if replay is None \
+            else replay[i]
+        top_p = probs.gather(1, top_e)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        mes.append(probs[:, :E].mean(0))
+        ces.append(F.one_hot(top_e[:, 0], E_pad)[:, :E].float().mean(0))
+        ranks = moe_mod._local_rank_in_expert(top_e.reshape(-1), E_pad)
+        keep = ranks < c_send
+        slot = torch.where(keep, top_e.reshape(-1) * c_send + ranks,
+                           E_pad * c_send)
+        send = torch.zeros((E_pad * c_send + 1, D), dtype=x.dtype,
+                           device=x.device).index_copy(
+            0, slot, xf.repeat_interleave(K, dim=0))
+        blocks.append((top_p, slot, keep, send[:-1].reshape(
+            tp, E_loc * c_send, D)))
+        routes.append((top_e.detach(), keep))
+    aux = E * torch.sum(torch.stack(mes).mean(0) * torch.stack(ces).mean(0))
+    pad = (0, 0, 0, 0, 0, E_pad - E)
+    wg, wu, wo = (F.pad(p[k], pad) for k in ("wi_gate", "wi_up", "wo"))
+    outs = []
+    for d in range(dp):
+        back = [[None] * tp for _ in range(tp)]
+        for r in range(tp):                         # expert owner r
+            recv = torch.stack([blocks[d * tp + j][3][r] for j in range(tp)])
+            buf = recv.reshape(tp, E_loc, c_send, D).transpose(0, 1) \
+                .reshape(E_loc, tp * c_send, D)
+            ob = moe_mod._swiglu_experts(
+                buf, *(w[r * E_loc:(r + 1) * E_loc] for w in (wg, wu, wo)))
+            ob = ob.reshape(E_loc, tp, c_send, D)
+            for j in range(tp):
+                back[j][r] = ob[:, j].reshape(E_loc * c_send, D)
+        row = []
+        for j in range(tp):
+            top_p, slot, keep, _ = blocks[d * tp + j]
+            out_flat = torch.cat(back[j], 0)
+            got = torch.where(keep[:, None], out_flat[moe_mod._combine_rows(
+                out_flat, slot, keep)], 0.0)
+            row.append((got * top_p.reshape(-1, 1).to(x.dtype)).reshape(
+                t, K, D).sum(dim=1).reshape(b, s, D))
+        outs.append(torch.cat(row, 1))
+    return torch.cat(outs, 0), aux, routes
+
+
+def layer_emulated(torch, p, cfg, x, dp: int, tp: int, replay=None):
+    """One GQA + MoE block of a (data ``dp``, model ``tp``) mesh in one
+    process: each data rank's attention as the sum of its ``tp`` model
+    ranks' partial outputs (their heads' columns of ``wq``, ``wk``,
+    ``wv`` and rows of ``wo``), then ``layer_emulated_moe``.  Returns
+    (out, aux, routes)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.common import rmsnorm
+    B = x.shape[0]
+    hd, Hq, Hkv = cfg.hd, cfg.heads // tp, cfg.kv_heads // tp
+    a = p["attn"]
+
+    def heads(m):
+        q, kv = slice(m * Hq * hd, (m + 1) * Hq * hd), \
+            slice(m * Hkv * hd, (m + 1) * Hkv * hd)
+        return {"wq": a["wq"][:, q], "wk": a["wk"][:, kv],
+                "wv": a["wv"][:, kv], "wo": a["wo"][q]}
+
+    hs = []
+    for d in range(dp):
+        xd = x[d * B // dp:(d + 1) * B // dp]
+        xn = rmsnorm(xd, p["ln1"], cfg.norm_eps)
+        y = attn_mod.gqa_forward(heads(0), cfg, xn)
+        for m in range(1, tp):
+            y = y + attn_mod.gqa_forward(heads(m), cfg, xn)
+        hs.append(xd + y)
+    h = torch.cat(hs, 0)
+    y, aux, routes = layer_emulated_moe(
+        torch, p["mlp"], cfg, rmsnorm(h, p["ln2"], cfg.norm_eps), dp, tp,
+        replay)
+    return h + y, aux, routes
+
+
+def layer_objective(out, aux, cot):
+    """The (a) layer's loss: the mean of out * cot over every element,
+    plus the aux term at ``lm_loss``'s weight."""
+    return (out.float() * cot).sum() / out.numel() + \
+        TRAIN_MESH_AUX_WEIGHT * aux
+
+
+def layer_inputs(torch, dev, cfg):
+    """(a)'s weights (one GQA + MoE block at full width, bf16, seed 30),
+    input x and cotangent (TRAIN_MESH_B_TP x TRAIN_MESH_S tokens), the
+    same on every rank."""
+    from repro_torch.models import transformer as tf_mod
+    gen = torch.Generator(device=dev).manual_seed(30)
+    p = tf_mod._block_init(gen, cfg, "attn", torch.bfloat16, dev)
+    shape = (TRAIN_MESH_B_TP, TRAIN_MESH_S, cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    cot = torch.randn(shape, generator=gen, device=dev)
+    return p, x, cot
+
+
+@contextlib.contextmanager
+def local_routes_seen(torch):
+    """Record each ``route_local`` call's (top_e (t, K), keep (t*K,)) on
+    this rank."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_mod
+    route, seen = moe_mod.route_local, []
+
+    def recording(p, cfg, x):
+        out = route(p, cfg, x)
+        with torch.no_grad():
+            E_pad = out[4]
+            logits = F.pad(x.reshape(-1, x.shape[-1]).float() @ p["router"],
+                           (0, E_pad - cfg.n_experts), value=-1e30)
+            top_e = torch.topk(torch.softmax(logits, -1),
+                               cfg.experts_per_token, dim=-1)[1]
+        seen.append((top_e, out[2].clone()))
+        return out
+
+    moe_mod.route_local = recording
+    try:
+        yield seen
+    finally:
+        moe_mod.route_local = route
+
+
+def mesh_layer_train(torch, dev, mesh, cfg) -> dict:
+    """30 (a) on a rank of the (data 2, model 2) mesh: the block's forward
+    and backward as training runs it (the rank's training-layout blocks
+    gathered by their specs, its (batch, sequence) block of x, the
+    residual sequence-parallel, ``moe_apply_a2a``), its data group's loss
+    counted once, then ``train.loop``'s reduction of the gradients.
+    Returns the loss, aux, this rank's routes, its gradient blocks and
+    the launches."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.train.loop import _reduce_grads
+    p, x, cot = layer_inputs(torch, dev, cfg)
+    sizes = shd.mesh_shape(mesh)
+    dp, tp = sizes["data"], sizes["model"]
+    specs = shd.param_specs(cfg, p, tp, fsdp=True)
+    with shd.use_mesh(mesh):
+        local = shd.tree_map_with_path(
+            lambda path, leaf: shd.local_block(leaf, shd.leaf_at(
+                specs, path)).clone().requires_grad_(), p)
+        x_loc, c_loc = (shd.local_block(t, ("data", "model", None))
+                        for t in (x, cot))
+        n = x.numel()
+        del p, x, cot
+        _build.reset_launch_counts()
+        with local_routes_seen(torch) as seen:
+            h, aux = tf_mod._block_fwd(
+                tf_mod._gathered(local, specs), cfg, "attn", x_loc,
+                torch.zeros((), dtype=torch.float32, device=dev), sp=True)
+        # this data group's loss, counted once over 'model'; the data
+        # ranks' mean is the whole layer's objective (train.loop)
+        loss = coll.reduce_partial((h.float() * c_loc).sum() * (dp / n),
+                                   "model") + TRAIN_MESH_AUX_WEIGHT * aux
+        grads = iter(torch.autograd.grad(loss, list(tree_leaves(local))))
+        grads = _reduce_grads(tree_map(lambda _: next(grads), local), specs)
+        total = coll.all_reduce(loss.detach(), "data", "avg")
+    torch.cuda.synchronize()
+    return {"a_loss": float(total), "a_aux": float(aux.detach()),
+            "a_routes": [(e.cpu(), k.cpu()) for e, k in seen],
+            "a_grads": {k: g.cpu() for k, g in named_leaves(grads)},
+            "a_launches": {k: v for k, v in _build.LAUNCH_COUNTS.items()
+                           if v},
+            "a_designs": {f"{k}/{d}": v for (k, d), v in
+                          _build.DESIGN_COUNTS.items() if v}}
+
+
+def assemble(torch, specs, blocks: list, sizes: dict) -> dict:
+    """Whole tensors from the ranks' blocks: ``blocks`` holds (mesh
+    coordinate {axis: index}, {path: block}) of each rank; each block goes
+    where ``specs`` (a flat {path: spec}) places it."""
+    out = {}
+    for coord, tree in blocks:
+        for path, blk in tree.items():
+            spec = specs[path]
+            if path not in out:
+                shape = [n * int(np.prod([sizes.get(a, 1) for a in (
+                    (e,) if isinstance(e, str) else (e or ()))]))
+                    for n, e in zip(blk.shape, spec)]
+                out[path] = torch.empty(shape, dtype=blk.dtype)
+            view = out[path]
+            for d, e in enumerate(spec):
+                axes = (e,) if isinstance(e, str) else (e or ())
+                idx = 0
+                for a in axes:
+                    idx = idx * sizes.get(a, 1) + coord.get(a, 0)
+                view = view.narrow(d, idx * blk.shape[d], blk.shape[d])
+            view.copy_(blk)
+    return out
+
+
+def layer_check(torch, label: str, got: dict, want: dict) -> bool:
+    """Print and hold (a): the routes (pairs routed differently, at most
+    ``MOE_FLIP_MAX``), then the loss, aux and each gradient leaf on the
+    routing replayed.  ``got`` and ``want`` hold "loss", "aux", "routes"
+    (a list of (top_e, keep) a block) and "grads" ({path: whole
+    tensor}); ``want`` also "free_routes", its routes for itself."""
+    pairs = differ = dropped = 0
+    for (eg, kg), (ew, kw) in zip(got["routes"], want["free_routes"]):
+        sg, sw = torch.sort(eg.cpu(), 1)[0], torch.sort(ew.cpu(), 1)[0]
+        differ += int((sg != sw).sum()) + int((kg.cpu() != kw.cpu()).sum())
+        pairs += eg.numel()
+        dropped += int((~kg).sum())
+    flip = differ / pairs
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    aux_rel = abs(got["aux"] - want["aux"]) / abs(want["aux"])
+    worst, worst_rms, rows = "", -1.0, []
+    for path in sorted(want["grads"]):
+        r = rel_rms(got["grads"][path], want["grads"][path])
+        rows.append(f"{path} {r:.3e}")
+        if not r <= worst_rms:
+            worst, worst_rms = path, r
+    print(f"  (a) {label}: (token, k) pairs routed differently "
+          f"{flip:.6f} (limit {MOE_FLIP_MAX}), dropped {dropped} of {pairs}"
+          f"; on the routing replayed: loss {got['loss']:.6f} vs "
+          f"{want['loss']:.6f}, relative {loss_rel:.3e} (limit "
+          f"{MOE_TRAIN_LOSS_RTOL}); aux {got['aux']:.6f} vs "
+          f"{want['aux']:.6f}, relative {aux_rel:.3e} (limit "
+          f"{MOE_AUX_RTOL}); worst gradient leaf {worst} {worst_rms:.3e} "
+          f"(limit {TRAIN_GRAD_REL_RMS}); per leaf: " + "; ".join(rows))
+    finite = np.isfinite(got["loss"]) and all(
+        bool(torch.isfinite(g).all()) for g in got["grads"].values())
+    return bool(finite and flip <= MOE_FLIP_MAX
+                and loss_rel <= MOE_TRAIN_LOSS_RTOL
+                and aux_rel <= MOE_AUX_RTOL
+                and worst_rms <= TRAIN_GRAD_REL_RMS
+                and set(got["grads"]) == set(want["grads"]))
+
+
+def layer_emulated_run(torch, dev, cfg, replay=None) -> dict:
+    """(a)'s objective and whole gradients through ``layer_emulated`` of
+    the (data 2, model 2) mesh on card ``dev``, with the kernels or (in
+    ``plain_kernels``) their plain versions."""
+    p, x, cot = layer_inputs(torch, dev, cfg)
+    leaves = {k: v.requires_grad_() for k, v in named_leaves(p)}
+    out, aux, routes = layer_emulated(torch, p, cfg, x, TRAIN_MESH_DP,
+                                      TRAIN_MESH_TP, replay)
+    loss = layer_objective(out, aux, cot)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    return {"loss": float(loss.detach()), "aux": float(aux.detach()),
+            "routes": routes,
+            "grads": {k: g.detach() for k, g in zip(leaves, grads)}}
+
+
+def layer_phase(torch, dev, cfg, mesh_recs=None) -> dict:
+    """30 (a) on card 0: with ``mesh_recs`` (the 4 ranks' records) the
+    mesh's run against the plain emulation, else the emulation's kernel
+    path against its plain version.  Returns the launches by (E, C, D,
+    F) and flash shape the kernel path made."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    label = "one granite layer (GQA + MoE), (" + ", ".join(
+        str(n) for n in (TRAIN_MESH_B_TP, TRAIN_MESH_S, cfg.d_model)) + \
+        ") bf16, training, on (data 2, model 2)"
+    tallies = {}
+    if mesh_recs is None:
+        _build.reset_launch_counts()
+        with flash_tally() as (ftally, _), gmm_tally() as gtally:
+            got = layer_emulated_run(torch, dev, cfg)
+        tallies = {"flash": dict(ftally), "gmm": dict(gtally)}
+        got["designs"] = {f"{k}/{d}": v for (k, d), v in
+                          _build.DESIGN_COUNTS.items() if v}
+        label += ", emulated on card 0: kernel path against plain"
+    else:
+        sizes = {"data": TRAIN_MESH_DP, "model": TRAIN_MESH_TP}
+        p, _, _ = layer_inputs(torch, dev, cfg)
+        specs = dict(named_leaves(shd.param_specs(cfg, p, TRAIN_MESH_TP,
+                                                  fsdp=True)))
+        del p
+        blocks = [(r["coord"], r["a_grads"]) for r in mesh_recs]
+        by_coord = {(r["coord"]["data"], r["coord"]["model"]): r
+                    for r in mesh_recs}
+        got = {"loss": mesh_recs[0]["a_loss"], "aux": mesh_recs[0]["a_aux"],
+               "routes": [by_coord[divmod(i, TRAIN_MESH_TP)]["a_routes"][0]
+                          for i in range(TRAIN_MESH_DP * TRAIN_MESH_TP)],
+               "grads": assemble(torch, specs, blocks, sizes),
+               "designs": mesh_recs[0]["a_designs"]}
+        label += " over 4 cards against the plain emulation on card 0"
+        losses = {(r["a_loss"], r["a_aux"]) for r in mesh_recs}
+        if len(losses) != 1:
+            fail(f"phase 30 (a): the ranks' loss and aux differ: {losses}")
+    with plain_kernels():
+        free = layer_emulated_run(torch, dev, cfg)
+        want = layer_emulated_run(torch, dev, cfg, [
+            e.to(dev) for e, _ in got["routes"]])
+    want["free_routes"] = free["routes"]
+    got["grads"] = {k: v.to(dev) for k, v in got["grads"].items()}
+    ok = layer_check(torch, label, got, want)
+    # a rank's forward and backward: one flash launch, three expert
+    # products and two launches each backward; the emulation makes those
+    # of all four ranks
+    ranks = 1 if mesh_recs is not None else TRAIN_MESH_DP * TRAIN_MESH_TP
+    designs = {"flash_attention/tc": ranks, "expert_matmul/tc": 9 * ranks}
+    print(f"      the kernel path's launches (a rank's on the mesh) by "
+          f"design: {got['designs']} (want {designs})")
+    ok = ok and got["designs"] == designs
+    del free, want, got
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("phase 30 (a): the sharded training layer does not agree with "
+             "its plain emulation")
+    return tallies
+
+
+def leaf_checksums(torch, tree):
+    """(leaf, 2) int64 on the leaves' device: each leaf's bits summed, and
+    summed weighted by their position mod 65521, as integers (exact):
+    equal bits give equal rows."""
+    rows = []
+    for _, leaf in named_leaves(tree):
+        flat = leaf.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32)
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=leaf.device)
+        for lo in range(0, bits.numel(), 1 << 25):
+            b = bits[lo:lo + (1 << 25)].to(torch.int64)
+            pos = torch.arange(lo, lo + b.numel(), device=b.device) % 65521
+            s1 = s1 + b.sum()
+            s2 = s2 + (b * (pos + 1)).sum()
+        rows.append(torch.stack([s1, s2]))
+    return torch.stack(rows)
+
+
+def mesh_train_run(torch, dev, mesh, cfg, batch_b: int) -> dict:
+    """30 (b) on a rank: ``cfg`` with the sharded init in the training
+    layout, TRAIN_MESH_STEPS ``make_train_step`` steps (remat on) on one
+    repeated batch of ``batch_b`` x TRAIN_MESH_S structured tokens, with
+    the launches and the collectives counted over the steps; its init and
+    step peaks, walls and metrics; the checksums of its params and master
+    weights; one profiled step's device time and NCCL's share of it; and
+    the first flash call's inputs (for the kernel line)."""
+    from repro_torch.data import structured_unit
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train.loop import make_train_step
+    import torch.distributed as dist
+    model = build_model(cfg)
+    rec = {}
+    with shd.use_mesh(mesh):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev, fsdp=True)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["init_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        rec["param_gb"] = describe_params(params)[1] / 1e9
+        opt = AdamW(lr=constant(TRAIN_LR))
+        state = opt.init(params)
+        step = make_train_step(model, opt, remat=True)
+        batch = structured_unit(0, batch_b, TRAIN_MESH_S, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        coll.reset_counts()
+        walls, metrics = [], []
+        with flash_tally() as (ftally, first), gmm_tally() as gtally:
+            for _ in range(TRAIN_MESH_STEPS):
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+        rec.update(
+            walls=walls, metrics=metrics,
+            step_peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            launches={k: v for k, v in _build.LAUNCH_COUNTS.items() if v},
+            designs={f"{k}/{d}": v for (k, d), v in
+                     _build.DESIGN_COUNTS.items() if v},
+            collectives=coll.counts(), flash_shapes=dict(ftally),
+            gmm_shapes=dict(gtally), coord=dict(zip(
+                mesh.mesh_dim_names, mesh.get_coordinate())))
+        if dist.get_rank() == 0 and first:
+            (key, call), = first.items()
+            rec["flash_call"] = (key, tuple(
+                t.detach().cpu() if isinstance(t, torch.Tensor) else t
+                for t in call))
+        del first
+        rec["checksums"] = {
+            "params": leaf_checksums(torch, params).cpu(),
+            "master": leaf_checksums(torch, state.master).cpu()}
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, state, batch)
+            torch.cuda.synchronize()
+            rec["prof_wall_s"] = time.perf_counter() - t0
+        events = [e for e in device_rows(torch, prof)[0]
+                  if e.self_device_time_total > 0]
+        rec["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+        rec["nccl_ms"] = sum(e.self_device_time_total for e in events
+                             if "nccl" in e.key.lower()) / 1e3
+        del params, state, opt, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_mesh_rank(rank: int, out: str) -> None:
+    """Phase 30's body on one rank of the 4-card NCCL world, card
+    ``rank``: (a) on the (data 2, model 2) mesh, then (b) on (data 4,
+    model 1) and on (data 2, model 2); its record goes to ``out``."""
+    import torch
+    from repro_torch.configs import get_config, resolve_for_tp
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device("cuda", rank)
+    flat = make_host_mesh(model=1)
+    mesh = make_host_mesh(model=TRAIN_MESH_TP)
+    cfg = resolve_for_tp(get_config(TRAIN_MESH_ARCH), TRAIN_MESH_TP)
+    rec = {"card": torch.cuda.get_device_name(dev),
+           "coord": dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))}
+    t0 = time.perf_counter()
+    rec.update(mesh_layer_train(torch, dev, mesh, cfg))
+    rec["a_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for label, m, c, b in (
+            ("d4m1", flat, resolve_for_tp(get_config(TRAIN_MESH_ARCH), 1),
+             TRAIN_MESH_B_DP),
+            ("d2m2", mesh, cfg, TRAIN_MESH_B_TP)):
+        t0 = time.perf_counter()
+        rec[label] = mesh_train_run(torch, dev, m, c, b)
+        rec[label]["s"] = time.perf_counter() - t0
+    torch.save(rec, os.path.join(out, f"train-mesh-r{rank}.pt"))
+
+
+def train_shapes(cfg, dp: int, tp: int, L: int) -> tuple:
+    """The flash shape and the expert products' (E, C, D, F) launches that
+    a rank's TRAIN_MESH_STEPS steps (remat on) make on a (data ``dp``,
+    model ``tp``) mesh over ``dp`` x TRAIN_MESH_S tokens, ``L`` layers:
+    each layer's forward (twice, with the remat's recompute) and backward,
+    the latter's dX = dY W^T and dW = X^T dY.  Where tp > 1 the
+    all-to-all's buffer (E/tp experts, tp x c_send rows); else the
+    scatter path's C / dp block of every expert."""
+    E, D, Ff, K = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.experts_per_token
+    if tp > 1:
+        e = -(-E // tp)
+        t = TRAIN_MESH_S // tp
+        rows = tp * max(4, -(-int(t * K * cfg.capacity_factor / (e * tp))
+                                // 4) * 4)
+    else:
+        from repro_torch.models.moe import _capacity
+        e, rows = E, _capacity(dp * TRAIN_MESH_S, cfg) // dp
+    n = L * TRAIN_MESH_STEPS
+    flash = (1, TRAIN_MESH_S, TRAIN_MESH_S, cfg.heads // tp,
+             cfg.kv_heads // tp, cfg.hd, True, 0)
+    return flash, {(e, rows, D, Ff): 5 * n, (e, rows, Ff, D): 4 * n,
+                   (e, D, rows, Ff): 2 * n, (e, Ff, rows, D): n}
+
+
+def train_report(torch, recs: list, cfg, label: str, batch_b: int,
+                 dp: int, tp: int) -> None:
+    """Print and hold (b) of one mesh from the 4 ranks' records."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import build_model
+    L, steps = cfg.n_layers, TRAIN_MESH_STEPS
+    flash, gmm = train_shapes(cfg, dp, tp, L)
+    want = {"flash_attention": 2 * L * steps, "expert_matmul": 12 * L * steps}
+    specs = [s for _, s in named_leaves(shd.param_specs(
+        cfg, build_model(cfg).param_specs(), tp, fsdp=True))]
+    tokens = batch_b * TRAIN_MESH_S
+    print(f"  (b) {TRAIN_MESH_ARCH} {L} layers on {label} (data {dp}, model "
+          f"{tp}), {batch_b} x {TRAIN_MESH_S} structured tokens, bf16, "
+          f"sharded init in the training layout, remat on, {steps} steps "
+          f"on one batch:")
+    problems = []
+    for r, rec in enumerate(recs):
+        warm = min(rec["walls"][1:])
+        busy = rec["busy_ms"] / (rec["prof_wall_s"] * 1e3)
+        per_step = {k: {f: v / steps for f, v in row.items()}
+                    for k, row in rec["collectives"].items()}
+        print(f"    rank {r} {rec['coord']}: init {rec['init_s']:.2f} s, "
+              f"weights {rec['param_gb']:.3f} GB, init peak "
+              f"{rec['init_peak_gb']:.3f} GB, step peak "
+              f"{rec['step_peak_gb']:.3f} GB; step walls "
+              f"{[round(w * 1e3, 3) for w in rec['walls']]} ms, warm "
+              f"{warm * 1e3:.3f} ms (min of the last {steps - 1}), "
+              f"{tokens / 4 / warm:.1f} tokens/s a card; losses "
+              f"{[m['loss'] for m in rec['metrics']]}, moe_aux "
+              f"{[m['moe_aux'] for m in rec['metrics']]}, grad norms "
+              f"{[m['grad_norm'] for m in rec['metrics']]}")
+        print(f"      profiled step {rec['prof_wall_s'] * 1e3:.3f} ms: "
+              f"device busy {rec['busy_ms']:.3f} ms ({100 * busy:.2f}%), "
+              f"NCCL {rec['nccl_ms']:.3f} ms "
+              f"({100 * rec['nccl_ms'] / max(rec['busy_ms'], 1e-9):.2f}% "
+              f"of device time), outside NCCL "
+              f"{rec['busy_ms'] - rec['nccl_ms']:.3f} ms; launches "
+              f"{rec['launches']}, designs {rec['designs']}; collectives a "
+              f"step (calls, bytes, ring wire bytes a rank): {per_step}")
+        if rec["launches"] != want or rec["designs"] != {
+                f"{k}/tc": v for k, v in want.items()}:
+            problems.append(f"rank {r} launches {rec['launches']}, designs "
+                            f"{rec['designs']}; want {want}, all on tc")
+        if rec["flash_shapes"] != {flash: want["flash_attention"]} or \
+                rec["gmm_shapes"] != gmm:
+            problems.append(f"rank {r} shapes {rec['flash_shapes']} "
+                            f"{rec['gmm_shapes']}; want {flash} {gmm}")
+        if rec["metrics"] != recs[0]["metrics"]:
+            problems.append(f"rank {r}'s metrics differ from rank 0's")
+    losses = [m["loss"] for m in recs[0]["metrics"]]
+    values = [v for m in recs[0]["metrics"] for v in m.values()]
+    if not np.all(np.isfinite(values)) or not losses[-1] < losses[0]:
+        problems.append(f"metrics {recs[0]['metrics']}: not finite, or the "
+                        f"last loss is not below the first")
+    for part in ("params", "master"):
+        for i, spec in enumerate(specs):
+            axes = shd.spec_axes(spec)
+            held = {}
+            for rec in recs:
+                block = tuple(rec["coord"].get(a, 0) for a in axes)
+                held.setdefault(block, []).append(rec["checksums"][part][i])
+            if not all(torch.equal(h[0], x) for h in held.values()
+                       for x in h[1:]):
+                problems.append(f"{part} leaf {i} ({spec}) differs between "
+                                f"ranks that hold the same block")
+    print(f"    every leaf that several ranks hold is the same bits on each "
+          f"(params and master weights, {len(specs)} leaves): "
+          f"{'yes' if not any('differs' in p for p in problems) else 'NO'}")
+    if problems:
+        fail(f"phase 30 (b) on {label}: " + "; ".join(problems))
+
+
+def world_one_train(torch, dev, cfg) -> dict:
+    """30 (b) on one card: ``cfg`` (cut in depth) at world size 1, the
+    sharded init and one sharded step against the unsharded init and
+    ``make_train_step``, bit for bit.  Returns the sharded run's
+    launches by flash and (E, C, D, F) shape."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.data import structured_unit
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_rank, make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    from repro_torch.train.loop import make_train_step
+    model = build_model(cfg)
+    batch = structured_unit(0, 1, TRAIN_MESH_S, cfg.vocab_size)
+    out = tempfile.mkdtemp(prefix="train-w1-")
+    runs, tallies = {}, {}
+    init_rank(0, 1, os.path.join(out, "store"), "nccl", 120)
+    try:
+        for label, mesh in (("sharded", make_host_mesh()), ("plain", None)):
+            with shd.use_mesh(mesh):
+                params = model.init(seed=0, device=dev,
+                                    fsdp=mesh is not None)
+                opt = AdamW(lr=constant(TRAIN_LR))
+                state = opt.init(params)
+                _build.reset_launch_counts()
+                with flash_tally() as (ftally, first), \
+                        gmm_tally() as gtally:
+                    params, state, metrics = make_train_step(
+                        model, opt, remat=True)(params, state, batch)
+                torch.cuda.synchronize()
+                if mesh is not None:
+                    tallies = {"flash": dict(ftally), "gmm": dict(gtally),
+                               "call": tuple(
+                                   t.detach() if isinstance(t, torch.Tensor)
+                                   else t for t in next(iter(first.values()),
+                                                        ())),
+                               "designs": {f"{k}/{d}": v for (k, d), v in
+                                           _build.DESIGN_COUNTS.items() if v}}
+                del first
+                runs[label] = (params, {k: float(v)
+                                        for k, v in metrics.items()})
+                del state, opt
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(out, ignore_errors=True)
+    (ps, ms), (pp, mp) = runs["sharded"], runs["plain"]
+    same = [torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(ps),
+                                                        named_leaves(pp))]
+    print(f"  (b) {TRAIN_MESH_ARCH} at depth {cfg.n_layers} (widths as "
+          f"published), 1 x {TRAIN_MESH_S} structured tokens, at world size "
+          f"1: the sharded init and step against the unsharded init and "
+          f"make_train_step: metrics {ms} vs {mp}; {sum(same)} of "
+          f"{len(same)} leaves bitwise equal after one step; launches "
+          f"{tallies['designs']}")
+    if ms != mp or not all(same) or not np.isfinite(ms["loss"]):
+        fail("phase 30 (b): at world size 1 the sharded step is not the "
+             "unsharded step bit for bit")
+    del runs, ps, pp
+    torch.cuda.empty_cache()
+    return tallies
+
+
+def train_flash_entry(torch, draw, path: str, launches: int, call,
+                      per: str) -> tuple:
+    """(ok, the kernels line's entry) for one flash shape of a training
+    path: ``zoo_flash_entry``'s checks and times, and the backward (the
+    plain version recomputed and differentiated) timed at the same
+    inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    q, k, v, causal, window, scale = call
+    ok, entry = zoo_flash_entry(torch, draw, path, launches, call,
+                                (q.shape[-1], v.shape[-1]), per)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, causal, window, scale)
+    cot = torch.ones_like(out)
+    bwd = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, cot,
+                                                     retain_graph=True))
+    print(f"  flash_attention backward on {path} (the plain version "
+          f"recomputed and differentiated): {bwd:.4f} ms")
+    entry.update(backward=BACKWARDS["flash_attention"], backward_ms=bwd)
+    return ok, entry
+
+
+def train_mesh_phase(torch, dev) -> list:
+    """Phase 30; returns its kernels-line entries."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config, resolve_for_tp
+    from repro_torch.launch.mesh import spawn
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    cfg = resolve_for_tp(get_config(TRAIN_MESH_ARCH), TRAIN_MESH_TP)
+    flat_cfg = resolve_for_tp(get_config(TRAIN_MESH_ARCH), 1)
+    print(f"phase 30: the sharded training step -- {TRAIN_MESH_ARCH} "
+          f"({cfg.heads}/{cfg.kv_heads} heads, {cfg.n_experts} experts) "
+          f"over {min(n_cards, 4)} card(s)")
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    calls = {}
+    if n_cards >= 4:
+        out = tempfile.mkdtemp(prefix="train-mesh-")
+        try:
+            torch.cuda.empty_cache()
+            spawn(train_mesh_rank, 4, (out,), backend="nccl",
+                  timeout_s=TRAIN_MESH_LIMIT_S, store_dir=out)
+            recs = [torch.load(os.path.join(out, f"train-mesh-r{r}.pt"),
+                               weights_only=False) for r in range(4)]
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        print(f"  the 4 ranks took: (a) {recs[0]['a_s']:.1f} s, (b) on "
+              f"(data 4, model 1) {recs[0]['d4m1']['s']:.1f} s, on (data 2, "
+              f"model 2) {recs[0]['d2m2']['s']:.1f} s")
+        layer_phase(torch, dev, cfg, recs)
+        train_report(torch, [r["d4m1"] for r in recs], flat_cfg, "d4m1",
+                     TRAIN_MESH_B_DP, 4, 1)
+        train_report(torch, [r["d2m2"] for r in recs], cfg, "d2m2",
+                     TRAIN_MESH_B_TP, 2, TRAIN_MESH_TP)
+        launched = {"d4m1": (recs[0]["d4m1"]["flash_shapes"],
+                             recs[0]["d4m1"]["gmm_shapes"]),
+                    "d2m2": (recs[0]["d2m2"]["flash_shapes"],
+                             recs[0]["d2m2"]["gmm_shapes"])}
+        for label in launched:
+            key, call = recs[0][label].get("flash_call", (None, ()))
+            calls[key] = tuple(t.to(dev) if isinstance(t, torch.Tensor)
+                               else t for t in call)
+        where = "on its rank of the 4-card mesh, over the path's 3 steps"
+        per = dict.fromkeys(launched, f"over {TRAIN_MESH_STEPS} steps on a "
+                                      f"rank")
+    else:
+        a = layer_phase(torch, dev, cfg)
+        b = world_one_train(torch, dev, dataclasses.replace(
+            flat_cfg, n_layers=TRAIN_MESH_ONE_CARD_DEPTH))
+        launched = {"d2m2": (a["flash"], a["gmm"]),
+                    "d4m1": (b["flash"], b["gmm"])}
+        key = next(iter(b["flash"]))
+        calls[key] = b["call"]
+        where = ("on card 0: (data 2, model 2) in (a)'s emulation of its "
+                 "4 ranks, (data 4, model 1) in (b)'s step at world size 1 "
+                 f"and depth {TRAIN_MESH_ONE_CARD_DEPTH}")
+        per = {"d2m2": "in (a)'s emulated forward and backward",
+               "d4m1": "in (b)'s step at world size 1"}
+        print(f"  phase 30 needs 4 cards for: (a) the layer over NCCL "
+              f"against its plain emulation, (b) {TRAIN_MESH_ARCH} at full "
+              f"depth on (data 4, model 1) and (data 2, model 2); this "
+              f"machine has {n_cards}: (a) ran emulated on card 0, (b) at "
+              f"world size 1 and depth {TRAIN_MESH_ONE_CARD_DEPTH}")
+    # (c) the kernels at each rank's training shapes, on card 0 alone
+    entries = []
+    for label, (flash, gmm) in launched.items():
+        path = f"train {TRAIN_MESH_ARCH} {label} a rank"
+        per_run = per[label]
+        for key, n in sorted(flash.items()):
+            B, Sq, Sk, Hq, Hkv, d, causal, window = key
+            call = calls.get(key) or (
+                draw((B, Sq, Hq, d), torch.bfloat16),
+                draw((B, Sk, Hkv, d), torch.bfloat16),
+                draw((B, Sk, Hkv, d), torch.bfloat16), causal, window, None)
+            ok, entry = train_flash_entry(torch, draw, path, n, call,
+                                          per_run)
+            if not ok:
+                fail(f"phase 30 (c): flash at {key} against plain")
+            entry["launched"] = where
+            entries.append(entry)
+        for shape, n in sorted(gmm.items()):
+            entry = gmm_entry(torch, dev, path, shape, n, per_run)
+            entry["launched"] = where
+            entries.append(entry)
+    print(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s")
     return entries
 
 
@@ -6154,6 +6930,7 @@ def main() -> None:
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s wall")
     if sys.argv[1:] == ["--mesh"]:
         mesh_kernels = mesh_phase(torch, dev)
+        mesh_kernels += train_mesh_phase(torch, dev)
         print(json.dumps({"kernels": mesh_kernels}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6355,6 +7132,8 @@ def main() -> None:
     clock("phase 28")
     mesh_kernels = mesh_phase(torch, dev)
     clock("phase 29")
+    train_mesh_kernels = train_mesh_phase(torch, dev)
+    clock("phase 30")
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -6365,7 +7144,8 @@ def main() -> None:
         "bound_ms": bounds[B0][0], "bound_by": bounds[B0][1],
         "library_ms": None}] + serve_kernels + moe_kernels
         + train_kernels + het_kernels + experiment_kernels
-        + zoo_kernels + fluid_kernels + mesh_kernels}))
+        + zoo_kernels + fluid_kernels + mesh_kernels
+        + train_mesh_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

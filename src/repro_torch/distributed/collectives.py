@@ -17,12 +17,42 @@ tensor:
 
 Several axes run as one collective a axis, innermost first, which keeps
 the JAX package's axis-major order.  An axis of size 1 (or absent from
-the mesh) is no collective at all.
+the mesh) is no collective at all.  These four have no backward.
+
+Training differentiates through the collectives, and each place a
+collective is used needs its own backward.  The convention is the one
+``train.loop`` states: each rank's loss is the mean over its batch
+block, the ranks that differ only on ``model`` compute the same loss and
+it counts once, and every replicated activation carries its whole
+cotangent on every rank of ``model``.  The ``autograd.Function`` classes below
+run the same wrappers forward and backward (so both are tallied):
+
+* ``gather(x, axes, dim)``: all-gather; backward a reduce-scatter (sum).
+  A weight's FSDP gather over ``data``, the sequence-parallel gather over
+  ``model``, a gather of partial per-rank uses.
+* ``scatter(x, axes, dim)``: reduce-scatter; backward an all-gather (the
+  sequence-parallel reduce-scatter after ``wo`` or the FFN).
+* ``reduce_partial(x, axes)``: all-reduce (sum) of a row-parallel partial
+  output; backward the identity.
+* ``enter(x, axes)``: the identity; backward an all-reduce (sum) of the
+  cotangent.  A replicated value entering work that each rank does on its
+  own part (its heads, its sequence block), so each rank's cotangent is a
+  partial sum.
+* ``gather_replicated(x, axes, dim)``: all-gather before work that every
+  rank does alike (the logits over the vocab before the loss); backward
+  this rank's block of the cotangent, not a reduce-scatter.
+* ``exchange(x, axis)``: all-to-all; backward the same all-to-all (with
+  equal splits it is its own transpose).
+* ``mean_over_all(x, axes)``: the mean over every rank of ``axes`` of a
+  value each loss counts (the MoE aux term's per-expert vectors);
+  backward the cotangents summed over the batch axes, over the number of
+  ranks.
 
 ``COUNTS`` tallies each call by ``(op, group size)``: calls, payload
 bytes (the input's) and wire bytes a rank under ring algorithms, the
 factors ``repro.launch.hlo_analysis._wire_bytes`` gives XLA's
-collectives.  It is the port's collective accounting.
+collectives.  It is the port's collective accounting; with remat it
+counts the backward's re-gathers, as the JAX package's HLO does.
 """
 from __future__ import annotations
 
@@ -109,6 +139,26 @@ def all_reduce(x: torch.Tensor, axes: Axes, op: str = "sum"
     return x
 
 
+def all_reduce_many(xs: Sequence[torch.Tensor], axes: Axes,
+                    op: str = "sum") -> list:
+    """``all_reduce`` of each of ``xs``, bucketed: one collective a dtype
+    over the tensors flattened end to end (the per-leaf gradient and norm
+    reductions of a training step), then split back; ``xs`` as they are
+    where no axis has more than one rank."""
+    xs = list(xs)
+    if not _groups(axes):
+        return xs
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, x in enumerate(xs):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = all_reduce(torch.cat([xs[i].reshape(-1) for i in idx]), axes,
+                          op)
+        for i, part in zip(idx, flat.split([xs[i].numel() for i in idx])):
+            xs[i] = part.view(xs[i].shape)
+    return xs
+
+
 def all_gather(x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
     dim = dim % x.dim()
     for n, group in _groups(axes):
@@ -133,3 +183,137 @@ def reduce_scatter(x: torch.Tensor, axes: Axes, dim: int = 0
         _tally("reduce_scatter", n, _nbytes(src), _nbytes(out))
         x = out.movedim(0, dim)
     return x.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (see the module docstring)
+# ---------------------------------------------------------------------------
+
+def _size(axes: Axes) -> int:
+    n = 1
+    for size, _ in _groups(axes):
+        n *= size
+    return n
+
+
+def _index(axes: Axes) -> int:
+    """This rank's block index over ``axes`` (the first axis major)."""
+    from .sharding import axis_index, axis_size
+    idx = 0
+    for a in _axes(axes):
+        idx = idx * axis_size(a) + axis_index(a)
+    return idx
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axes, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim = axes, dim
+        return reduce_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axes, ctx.dim), None, None
+
+
+class _ReducePartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        return all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes), None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.dim, ctx.n = dim % x.dim(), x.shape[dim]
+        ctx.lo = _index(axes) * ctx.n
+        return all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n).contiguous(), None, None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.axis), None
+
+
+class _MeanOverAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes, ctx.n = axes, _size(axes)
+        return all_reduce(x, axes, "avg")
+
+    @staticmethod
+    def backward(ctx, g):
+        from .sharding import BATCH_AXES
+        batch = tuple(a for a in _axes(ctx.axes) if a in BATCH_AXES)
+        return all_reduce(g, batch) / ctx.n, None
+
+
+def _run(fn, x, *args):
+    """``fn`` where any axis of the collective has more than one rank, else
+    ``x`` itself (so a world of one makes exactly the unsharded graph)."""
+    return fn.apply(x, *args) if _groups(args[0]) else x
+
+
+def gather(x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+    return _run(_Gather, x, axes, dim)
+
+
+def scatter(x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
+    return _run(_Scatter, x, axes, dim)
+
+
+def reduce_partial(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    return _run(_ReducePartial, x, axes)
+
+
+def enter(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    return _run(_Enter, x, axes)
+
+
+def gather_replicated(x: torch.Tensor, axes: Axes, dim: int = 0
+                      ) -> torch.Tensor:
+    return _run(_GatherReplicated, x, axes, dim)
+
+
+def exchange(x: torch.Tensor, axis: str) -> torch.Tensor:
+    return _run(_Exchange, x, axis)
+
+
+def mean_over_all(x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    return _run(_MeanOverAll, x, axes)

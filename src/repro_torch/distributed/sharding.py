@@ -21,7 +21,11 @@ model code, as ``jax.set_mesh`` does, and ``active_mesh()`` reads it, as
 ``jax.sharding.get_abstract_mesh`` does.  ``local_block`` cuts this
 rank's block of a whole tensor under a spec; ``placements`` gives the
 same layout as DTensor placements; ``shard_params`` turns a whole
-parameter tree into this rank's local tensors.  ``maybe_shard`` resolves
+parameter tree into this rank's local tensors (the serving layout, or
+with ``fsdp`` the training layout) and ``shard_opt_state`` a whole
+``AdamWState`` (``opt_specs``); ``fsdp_gather`` all-gathers one local
+training-layout leaf over 'data' before use, its gradient
+reduce-scattered back (``collectives.gather``).  ``maybe_shard`` resolves
 a spec against the active mesh as the JAX package's does (absent axes
 and axes that do not divide a dim dropped) and returns this rank's block
 of ``x``, which it takes to be whole on every rank: the eager
@@ -366,17 +370,54 @@ def shard_residual(h: torch.Tensor) -> torch.Tensor:
     return maybe_shard(h, BATCH_AXES, None, None)
 
 
-def shard_params(params, cfg, mesh, tp: int):
+def shard_params(params, cfg, mesh, tp: int, fsdp: bool = False):
     """This rank's local tensors of a whole parameter tree, placed by
-    ``param_specs(fsdp=False)`` (the serving layout) at ``tp``.  Each
-    local tensor is a copy, so the whole tree can be freed."""
-    specs = param_specs(cfg, params, tp, fsdp=False)
+    ``param_specs(fsdp=fsdp)`` at ``tp``: the serving layout by default,
+    the training layout (every weight's non-TP matrix dim over 'data')
+    with ``fsdp``.  Each local tensor is a copy, so the whole tree can be
+    freed."""
+    specs = param_specs(cfg, params, tp, fsdp=fsdp)
 
     def one(path, leaf):
         return local_block(leaf, leaf_at(specs, path), mesh).clone(
             memory_format=torch.contiguous_format)
 
     return tree_map_with_path(one, params)
+
+
+def shard_opt_state(state, cfg, mesh, tp: int):
+    """This rank's blocks of a whole ``AdamWState`` under ``opt_specs``
+    (``mu``, ``nu`` and ``master`` as the training layout's params; the
+    step replicated)."""
+    pspecs = param_specs(cfg, state.master, tp, fsdp=True)
+    specs = opt_specs(cfg, state, pspecs)
+
+    def cut(tree, tree_specs):
+        return tree_map_with_path(
+            lambda path, leaf: local_block(
+                leaf, leaf_at(tree_specs, path), mesh).clone(
+                    memory_format=torch.contiguous_format), tree)
+
+    return type(state)(step=state.step, mu=cut(state.mu, specs.mu),
+                       nu=cut(state.nu, specs.nu),
+                       master=cut(state.master, specs.master))
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec shards over, in dim order."""
+    return tuple(a for entry in spec for a in _entry_axes(entry))
+
+
+def fsdp_gather(leaf: torch.Tensor, spec) -> torch.Tensor:
+    """The local ``leaf`` all-gathered over 'data' along the dim its
+    ``spec`` gives 'data' (``collectives.gather``: the gradient is
+    reduce-scattered back, summed over 'data'); ``leaf`` itself where
+    'data' is 1 or absent from the spec."""
+    from . import collectives as coll
+    for d, entry in enumerate(spec):
+        if "data" in _entry_axes(entry):
+            return coll.gather(leaf, "data", dim=d)
+    return leaf
 
 
 def shard_batch(batch):

@@ -46,15 +46,19 @@ def make_production_mesh(*, multi_pod: bool = False):
     return init_device_mesh(_device_type(), shape, mesh_dim_names=axes)
 
 
-def make_host_mesh(model: int = 1):
-    """(data = world // model, model) over the whole initialised world."""
+def make_host_mesh(model: int = 1, pod: int = 1):
+    """(data = world // model, model) over the whole initialised world;
+    with ``pod`` > 1, (pod, data = world // (pod * model), model)."""
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()
-    if n % model:
+    if n % (model * pod):
         raise ValueError(f"a world of {n} ranks does not split into "
-                         f"model={model}")
-    return init_device_mesh(_device_type(), (n // model, model),
-                            mesh_dim_names=AXES)
+                         f"pod={pod} x model={model}")
+    if pod == 1:
+        return init_device_mesh(_device_type(), (n // model, model),
+                                mesh_dim_names=AXES)
+    return init_device_mesh(_device_type(), (pod, n // (pod * model), model),
+                            mesh_dim_names=("pod",) + AXES)
 
 
 def dp_axes(mesh) -> tuple:

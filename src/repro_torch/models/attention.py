@@ -111,8 +111,9 @@ def _project_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     q = (x @ p["wq"]).reshape(B, S, -1, hd)
     k, v = x @ p["wk"], x @ p["wv"]
     if k.shape[-1] < cfg.kv_heads * hd and cfg.kv_heads % axis_size("model"):
-        # KV columns split inside heads: every rank takes all of them
-        k, v = (coll.all_gather(t, "model", dim=-1) for t in (k, v))
+        # KV columns split inside heads: every rank takes all of them (and
+        # uses those of its Q heads, so the gather's backward sums)
+        k, v = (coll.gather(t, "model", dim=-1) for t in (k, v))
     k, v = k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
     if "q_norm" in p:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)

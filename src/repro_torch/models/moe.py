@@ -34,24 +34,33 @@ reference's one clamp, which costs two kernels a layer fewer than the
 spread: ~2 ms of a ~60 ms granite decode step on an H100.
 
 On a mesh (``distributed.sharding.use_mesh``) every function takes this
-rank's local tensors.  ``moe_apply`` dispatches as the JAX package's
-does: the expert-parallel ``moe_apply_a2a`` when the mesh's ``model``
-axis has more than one rank and the sequence (S > 1) splits over it,
-else the scatter path.  ``moe_apply_a2a`` is the JAX package's
-``shard_map`` body run eagerly on each rank's (batch over ``data``,
+rank's local tensors and its weights gathered over 'data' (the serving
+layout; training gathers its FSDP blocks before the block runs,
+``models.transformer._gathered``).  ``moe_apply`` dispatches as the JAX
+package's does: the expert-parallel ``moe_apply_a2a`` when the mesh's
+``model`` axis has more than one rank and the sequence (S > 1) splits
+over it, else the scatter path.  ``moe_apply_a2a`` is the JAX package's
+``shard_map`` body run eagerly on each rank's (batch over the batch axes,
 sequence over ``model``) token block: local routing and capacity
 (``c_send``), one ``all_to_all`` there and one back over ``model``
-(``distributed.collectives``), the rank's E/tp experts (padded to
-``E_pad`` with dummy experts behind ``-1e30`` logits where tp does not
-divide E), and the aux term's mean over every axis.  Its per-rank
-capacity drops other pairs than the global scatter: it is a different
-computation wherever pairs drop, as in the JAX package.  On a mesh the
-scatter path (decode, S = 1) gathers every token (over ``data``, and the
-sequence over ``model`` where it is split), routes and slots them as on
-one device, runs this rank's experts (``maybe_shard(buf, "model", ...)``;
-with tp not dividing E, every expert on this rank's slice of F, summed
-over ``model``) and all-gathers the expert outputs, so each rank
-combines exactly what one device would.
+(``collectives.exchange``: its backward is the same exchange), the
+rank's E/tp experts (padded to ``E_pad`` with dummy experts behind
+``-1e30`` logits where tp does not divide E, their weights gathered over
+``model`` with a reduce-scatter backward), and the aux term's mean over
+every axis (``collectives.mean_over_all``).  Its per-rank capacity drops
+other pairs than the global scatter: it is a different computation
+wherever pairs drop, as in the JAX package.  On a mesh the scatter path
+gathers every token (over the batch axes, and the sequence over
+``model`` where it is split; the gather's backward reduce-scatters) and
+routes and slots them as on one device.  Where ``model`` is 1 it splits
+the buffer's capacity over the batch axes, the JAX package's
+``maybe_shard(buf, ep, BATCH_AXES, None)``: each rank runs its C / n
+block of every expert and ``out_buf`` is all-gathered (reduce-scattered
+in the backward).  Where ``model`` > 1 (decode, S = 1; serving only) it
+runs this rank's experts (``maybe_shard(buf, "model", ...)``; with tp
+not dividing E, every expert on this rank's slice of F, summed over
+``model``) and all-gathers the expert outputs, so each rank combines
+exactly what one device would.
 """
 from __future__ import annotations
 
@@ -62,7 +71,8 @@ import torch.nn.functional as F
 
 from ..distributed import collectives as coll
 from ..distributed.sharding import (BATCH_AXES, active_mesh, axis_index,
-                                    axis_size, maybe_shard, use_mesh)
+                                    axis_size, local_block, maybe_shard,
+                                    resolve_spec, use_mesh)
 from ..kernels.moe_gmm.ops import expert_matmul
 from .common import Params, dense_init, randn
 
@@ -147,16 +157,42 @@ def _swiglu_experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def _expert_ffn(p: Params, cfg, buf: torch.Tensor) -> torch.Tensor:
     """The expert FFN of the whole (E, C, D) buffer, which every rank of a
-    mesh holds alike: the rank's E/tp experts, their outputs all-gathered
-    over 'model'; where tp does not divide E, every expert on this rank's
-    slice of F, the output's partial sums reduced over 'model'."""
+    mesh holds alike.  Where 'model' is 1: this rank's block of the
+    capacity over the batch axes (where they divide C), the outputs
+    all-gathered.  Else the rank's E/tp experts, their outputs
+    all-gathered over 'model'; where tp does not divide E, every expert on
+    this rank's slice of F, the output's partial sums reduced over
+    'model' (serving only)."""
     tp = axis_size("model")
+    if tp > 1 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (buf, p["wi_gate"], p["wi_up"], p["wo"])):
+        raise NotImplementedError(
+            f"the scatter path at model={tp} serves only; training takes "
+            f"moe_apply_a2a, on a sequence that splits over model")
     if tp > 1 and cfg.n_experts % tp == 0:
         buf = maybe_shard(buf, "model", None, None)
         return coll.all_gather(_swiglu_experts(buf, p["wi_gate"], p["wi_up"],
                                                p["wo"]), "model", dim=0)
-    out = _swiglu_experts(buf, p["wi_gate"], p["wi_up"], p["wo"])
-    return coll.all_reduce(out, "model") if tp > 1 else out
+    if tp > 1:
+        return coll.all_reduce(_swiglu_experts(
+            buf, p["wi_gate"], p["wi_up"], p["wo"]), "model")
+    spec = resolve_spec(buf.shape, (None, BATCH_AXES, None))
+    out = _swiglu_experts(local_block(buf, spec).contiguous(), p["wi_gate"],
+                          p["wi_up"], p["wo"])
+    return out if spec[1] is None else coll.gather(out, spec[1], dim=1)
+
+
+def _combine_rows(out_flat: torch.Tensor, slot: torch.Tensor,
+                  keep: torch.Tensor) -> torch.Tensor:
+    """The row of ``out_flat`` each pair's combine reads: its slot where
+    kept; where dropped the last row (the JAX package's clamp) or, with a
+    backward, the row of its index mod the rows (see the module
+    docstring)."""
+    n = out_flat.shape[0]
+    if out_flat.requires_grad:
+        return torch.where(keep, slot,
+                           torch.arange(slot.shape[0], device=slot.device) % n)
+    return slot.clamp_max(n - 1)
 
 
 def moe_apply_scatter(p: Params, cfg, x: torch.Tensor,
@@ -169,8 +205,8 @@ def moe_apply_scatter(p: Params, cfg, x: torch.Tensor,
     on_mesh = active_mesh() is not None
     if on_mesh:
         if seq_sharded:
-            x = coll.all_gather(x, "model", dim=1)
-        x = coll.all_gather(x, BATCH_AXES, dim=0)
+            x = coll.gather(x, "model", dim=1)
+        x = coll.gather(x, BATCH_AXES, dim=0)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     T = B * S
@@ -186,15 +222,10 @@ def moe_apply_scatter(p: Params, cfg, x: torch.Tensor,
     # expert FFN (SwiGLU), batched over experts
     out_buf = _expert_ffn(p, cfg, buf)
 
-    # combine: a dropped pair reads a row that the where() zeroes -- with
-    # a backward, the row of its index mod E*C (see the module docstring)
+    # combine: a dropped pair reads a row that the where() zeroes
     out_flat = out_buf.reshape(E * C, D)
-    if out_buf.requires_grad:
-        rows = torch.where(keep, slot,
-                           torch.arange(T * K, device=x.device) % (E * C))
-    else:
-        rows = slot.clamp_max(E * C - 1)
-    gathered = torch.where(keep[:, None], out_flat[rows], 0.0)
+    gathered = torch.where(keep[:, None],
+                           out_flat[_combine_rows(out_flat, slot, keep)], 0.0)
     weighted = gathered * top_p.reshape(-1, 1).to(x.dtype)
     out = weighted.reshape(T, K, D).sum(dim=1).reshape(B, S, D)
     if on_mesh:
@@ -224,7 +255,7 @@ def route_local(p: Params, cfg, x: torch.Tensor):
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     # globally exact load-balance loss: average the per-expert vectors
     # across shards BEFORE the product (== the unsharded computation)
-    me = coll.all_reduce(probs[:, :E].mean(0), ALL_AXES, "avg")
+    me = coll.mean_over_all(probs[:, :E].mean(0), ALL_AXES)
     ce = coll.all_reduce(F.one_hot(top_e[:, 0], E_pad)[:, :E].float()
                          .mean(0), ALL_AXES, "avg")
     aux = E * torch.sum(me * ce)
@@ -247,9 +278,8 @@ def _a2a_experts(p: Params, cfg, E_pad: int):
     E_loc = E_pad // tp
     lo = axis_index("model") * E_loc
     pad = (0, 0, 0, 0, 0, E_pad - cfg.n_experts)
-    wg, wu = (F.pad(coll.all_gather(w, "model", dim=2), pad)
-              for w in (wg, wu))
-    wo = F.pad(coll.all_gather(wo, "model", dim=1), pad)
+    wg, wu = (F.pad(coll.gather(w, "model", dim=2), pad) for w in (wg, wu))
+    wo = F.pad(coll.gather(wo, "model", dim=1), pad)
     return wg[lo:lo + E_loc], wu[lo:lo + E_loc], wo[lo:lo + E_loc]
 
 
@@ -274,16 +304,17 @@ def moe_apply_a2a(p: Params, cfg, x: torch.Tensor, mesh=None
                            device=x.device)
         send.index_copy_(0, slot, src)
         send = send[:-1].reshape(tp, E_loc * c_send, D)
-        recv = coll.all_to_all(send, "model")
+        recv = coll.exchange(send, "model")
         # recv[j] = my experts' tokens from model-peer j
         buf = recv.reshape(tp, E_loc, c_send, D).transpose(0, 1) \
             .reshape(E_loc, tp * c_send, D)
         out_buf = _swiglu_experts(buf, *_a2a_experts(p, cfg, E_pad))
         back = out_buf.reshape(E_loc, tp, c_send, D).transpose(0, 1) \
             .reshape(tp, E_loc * c_send, D)
-        out_flat = coll.all_to_all(back, "model").reshape(E_pad * c_send, D)
-        gathered = torch.where(
-            keep[:, None], out_flat[slot.clamp_max(E_pad * c_send - 1)], 0.0)
+        out_flat = coll.exchange(back, "model").reshape(E_pad * c_send, D)
+        gathered = torch.where(keep[:, None],
+                               out_flat[_combine_rows(out_flat, slot, keep)],
+                               0.0)
         weighted = gathered * top_p.reshape(-1, 1).to(x.dtype)
         out = weighted.reshape(t, K, D).sum(dim=1)
         return out.reshape(b, s, D), aux
@@ -312,7 +343,7 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, seq_sharded: bool = False
         if seq_sharded:
             return moe_apply_a2a(p, cfg, x)
         out, aux = moe_apply_a2a(p, cfg, maybe_shard(x, None, "model", None))
-        return coll.all_gather(out, "model", dim=1), aux
+        return coll.gather_replicated(out, "model", dim=1), aux
     return moe_apply_scatter(p, cfg, x, seq_sharded)
 
 

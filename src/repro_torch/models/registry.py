@@ -9,10 +9,15 @@ raises without a card.  The encoder-decoder family dispatches to
 dtypes of every parameter, cache and model input on the ``meta`` device
 (the JAX package's ``eval_shape`` / ``ShapeDtypeStruct`` stand-ins).
 Inside ``distributed.sharding.use_mesh`` ``init`` and ``init_cache``
-return this rank's local tensors (the serving layout): the sharded init
-draws every leaf in ``init``'s order from the same seeded generator and
-keeps this rank's block of it, so the weights are those the unsharded
-``init(seed)`` draws and a rank's peak is one whole layer.
+return this rank's local tensors: ``init`` in the serving layout
+(``param_specs(fsdp=False)``; the whole tree where ``model`` is 1) or,
+with ``fsdp=True``, in the training layout (``param_specs(fsdp=True)``,
+at any ``model``).  The sharded init draws every leaf in ``init``'s order
+from the same seeded generator and keeps this rank's block of it, so the
+weights are those the unsharded ``init(seed)`` draws and a rank's peak is
+one whole layer.  ``loss`` takes and returns local tensors in the
+training layout (``models.transformer.lm_loss``); serving takes the
+serving layout.
 """
 from __future__ import annotations
 
@@ -46,17 +51,19 @@ class Model:
             return encdec_mod.init_encdec_params(self.cfg, gen, dev)
         return tf_mod.init_lm_params(self.cfg, gen, dev, keep)
 
-    def init(self, seed: int = 0, device=DEFAULT_DEVICE) -> Any:
+    def init(self, seed: int = 0, device=DEFAULT_DEVICE,
+             fsdp: bool = False) -> Any:
         """Random weights from a ``torch.Generator`` seeded with ``seed``
-        on ``device``; on a mesh, this rank's blocks of them."""
+        on ``device``; on a mesh, this rank's blocks of them in the
+        serving layout, or with ``fsdp`` in the training layout."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         mesh = shd.active_mesh()
         tp = shd.axis_size("model")
-        if mesh is None or tp == 1:
+        if mesh is None or (tp == 1 and not fsdp):
             return self._init(gen, dev)
-        tf_mod.check_mesh(self.cfg)
-        specs = shd.param_specs(self.cfg, self.param_specs(), tp, fsdp=False)
+        tf_mod.check_mesh(self.cfg, train=fsdp)
+        specs = shd.param_specs(self.cfg, self.param_specs(), tp, fsdp=fsdp)
 
         def keep(path, leaf):
             spec = shd.leaf_at(specs, path)
@@ -77,8 +84,14 @@ class Model:
         """(mean next-token cross entropy, plus the router aux term for
         an MoE config; metrics) of ``batch`` on the params' device: tokens
         and labels (B, S), and an enc-dec config's ``frame_embeds`` or a
-        vision config's ``image_embeds``."""
+        vision config's ``image_embeds``.  On a mesh: this rank's batch
+        block and its training-layout params; the loss is the block's,
+        the metrics the global batch's."""
         if self.is_encdec:
+            if shd.active_mesh() is not None:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: the encoder-decoder family does not "
+                    f"train on a mesh")
             return encdec_mod.encdec_loss(params, self.cfg, batch, mode,
                                           remat)
         return tf_mod.lm_loss(params, self.cfg, batch, mode, remat)

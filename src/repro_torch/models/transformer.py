@@ -19,24 +19,38 @@ Caches keep one buffer per layer (the JAX package's ``stacked=False``
 serving layout): ``{"body": {"b<i>": [per-period cache]}, "tail":
 {"t<i>": cache}, "pos": int}``.
 
-Serving on a mesh (``distributed.sharding.use_mesh``): every function
-takes and returns this rank's local tensors, placed by the JAX package's
-serving rules (``param_specs(fsdp=False)``, ``cache_specs``, the batch
-over the data axes).  With tensor parallelism (the ``model`` axis, tp >
-1; the GQA and MoE transformer only) the embedding is vocab-parallel
-(each rank looks up the ids in its vocab rows, zeros the rest, and the
-ranks sum: exactly one rank contributes each value), ``lm_head`` is split
-by vocab columns and the logits gathered before ``_mask_padded_vocab``,
-and a prefill whose sequence splits over ``model`` keeps the residual
-sequence-parallel (``SEQ_SHARD_ACTIVATIONS``): attention and a dense FFN
-all-gather the normed sequence first and reduce-scatter their output,
-the MoE's all-to-all takes its token block as it lies.  Elsewhere (decode,
-a sequence that does not split) the residual is whole on every rank of
-``model`` and each partial output is all-reduced.
+On a mesh (``distributed.sharding.use_mesh``) every function takes and
+returns this rank's local tensors: serving in the JAX package's serving
+layout (``param_specs(fsdp=False)``, ``cache_specs``, the batch over the
+data axes), training (``lm_loss``) in its training layout
+(``param_specs(fsdp=True)``: every weight's non-TP matrix dim over
+``data``, FSDP).  Training gathers weights by their specs
+(``_gathered``): each body period's inside its remat checkpoint, so one
+period's whole weights live at a time and the backward gathers them
+again, as the JAX package's full remat does; the tail blocks', the
+embedding's, ``final_norm``'s and ``lm_head``'s where they are used.  The
+gather's backward reduce-scatters each gradient over ``data``.  With
+tensor parallelism (the ``model`` axis, tp > 1; the GQA and MoE
+transformer only) the embedding is vocab-parallel (each rank looks up
+the ids in its vocab rows, zeros the rest, and the ranks sum: exactly one
+rank contributes each value), ``lm_head`` is split by vocab columns and
+the logits gathered before ``_mask_padded_vocab``, and a sequence that
+splits over ``model`` keeps the residual sequence-parallel
+(``SEQ_SHARD_ACTIVATIONS``): attention and a dense FFN all-gather the
+normed sequence first and reduce-scatter their output, the MoE's
+all-to-all takes its token block as it lies.  Elsewhere (decode, a
+sequence that does not split) the residual is whole on every rank of
+``model`` and each partial output is all-reduced.  In training each
+rank's work on its own heads or sequence block makes its gradient of a
+weight that the ``model`` ranks hold alike (the norms, the router) a
+partial sum: that weight's gather passes ``collectives.enter``, whose
+backward sums it over ``model``; where the residual is whole, it enters
+the norms through ``enter`` too, so the same holds there.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -138,16 +152,23 @@ def _block_cache_init(cfg, kind: str, batch: int, s_max: int, dtype,
 
 def _tp_out(y: torch.Tensor, sp: bool) -> torch.Tensor:
     """A partial output summed over 'model': reduce-scattered along the
-    sequence when the residual is sequence-parallel, else all-reduced."""
+    sequence when the residual is sequence-parallel, else all-reduced
+    (differentiable: ``collectives.scatter`` / ``reduce_partial``)."""
     if shd.axis_size("model") == 1:
         return y
-    return coll.reduce_scatter(y, "model", dim=1) if sp \
-        else coll.all_reduce(y, "model")
+    return coll.scatter(y, "model", dim=1) if sp \
+        else coll.reduce_partial(y, "model")
 
 
 def _sp_gather(x: torch.Tensor, sp: bool) -> torch.Tensor:
     """The whole sequence of a sequence-parallel activation."""
-    return coll.all_gather(x, "model", dim=1) if sp else x
+    return coll.gather(x, "model", dim=1) if sp else x
+
+
+def _tp_enter(h: torch.Tensor, sp: bool) -> torch.Tensor:
+    """A whole (not sequence-parallel) residual entering the per-rank work
+    of the 'model' ranks: its backward sums their partial cotangents."""
+    return h if sp else coll.enter(h, "model")
 
 
 def _ffn(p: Params, cfg, kind: str, x: torch.Tensor, sp: bool = False
@@ -214,27 +235,30 @@ def _block_decode(p: Params, cfg, kind: str, h: torch.Tensor,
 
 
 def _block_fwd(p: Params, cfg, kind: str, h: torch.Tensor,
-               aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               aux: torch.Tensor, sp: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training / no-cache forward of one block: returns (h, aux), the
     MoE FFN of an ``attn`` block adding its router aux loss to the float32
-    carry ``aux`` (as the JAX ``_block_fwd``)."""
+    carry ``aux`` (as the JAX ``_block_fwd``).  On a mesh ``p`` is the
+    block's gathered weights; ``sp``: the residual is sequence-parallel."""
     if kind in ("mlstm", "slstm"):
         return h + _xlstm_cell(kind)(p["cell"], cfg, rmsnorm(
             h, p["ln"], cfg.norm_eps)), aux
-    x = rmsnorm(h, p["ln1"], cfg.norm_eps)
+    x = rmsnorm(_tp_enter(h, sp), p["ln1"], cfg.norm_eps)
     if kind == "attn":
-        h = h + attn.gqa_forward(p["attn"], cfg, x, _window(cfg))
+        h = h + _tp_out(attn.gqa_forward(p["attn"], cfg, _sp_gather(x, sp),
+                                         _window(cfg)), sp)
     elif kind == "mla":
         h = h + attn.mla_forward(p["attn"], cfg, x)
     elif kind == "rec":
         h = h + rec_mod.rglru_forward(p["rec"], cfg, x)
     else:
         raise ValueError(kind)
-    x = rmsnorm(h, p["ln2"], cfg.norm_eps)
+    x = rmsnorm(_tp_enter(h, sp), p["ln2"], cfg.norm_eps)
     if kind == "attn" and cfg.is_moe:
-        y, a = moe_mod.moe_apply(p["mlp"], cfg, x)
+        y, a = moe_mod.moe_apply(p["mlp"], cfg, x, seq_sharded=sp)
         return h + y, aux + a
-    return h + swiglu(p["mlp"], x), aux
+    return h + _tp_out(swiglu(p["mlp"], _sp_gather(x, sp)), sp), aux
 
 
 # ---------------------------------------------------------------------------
@@ -329,10 +353,16 @@ def init_cache(cfg, batch: int, s_max: int, device: torch.device) -> Params:
         "pos": 0}
 
 
-def check_mesh(cfg) -> None:
+def check_mesh(cfg, train: bool = False) -> None:
     """Raise where the active mesh's tensor parallelism does not cover
-    ``cfg``: tp > 1 serves the GQA transformer (dense or MoE FFN) only,
-    with its heads resolved for tp (``configs.resolve_for_tp``)."""
+    ``cfg``: tp > 1 serves and trains the GQA transformer (dense or MoE
+    FFN) only, with its heads resolved for tp
+    (``configs.resolve_for_tp``); any mesh trains the decoder families
+    only."""
+    if train and cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family does not train on a "
+            f"mesh")
     tp = shd.axis_size("model")
     if tp == 1:
         return
@@ -380,8 +410,38 @@ def _unbind(tree: Any, n: int) -> List[Any]:
     return list(torch.unbind(tree))
 
 
+@functools.lru_cache(maxsize=None)
+def train_specs(cfg, tp: int) -> Params:
+    """``param_specs(fsdp=True)`` of ``cfg``'s parameter tree at ``tp``:
+    the training layout that ``lm_loss`` takes on a mesh."""
+    return shd.param_specs(cfg, init_lm_params(cfg, None,
+                                               torch.device("meta")),
+                           tp, fsdp=True)
+
+
+def _gathered(tree: Any, specs: Any) -> Any:
+    """The whole weights of this rank's training-layout blocks ``tree``
+    (a leaf or a subtree) placed by ``specs``: each leaf all-gathered over
+    'data' (``sharding.fsdp_gather``) and, at tp > 1, a leaf that the
+    'model' ranks hold alike passed through ``collectives.enter`` (see
+    the module docstring).  ``tree`` itself outside a mesh."""
+    if specs is None:
+        return tree
+    tp = shd.axis_size("model")
+
+    def one(path, leaf):
+        spec = shd.leaf_at(specs, path)
+        w = shd.fsdp_gather(leaf, spec)
+        if tp > 1 and "model" not in shd.spec_axes(spec):
+            w = coll.enter(w, "model")
+        return w
+
+    return shd.tree_map_with_path(one, tree)
+
+
 def forward_hidden(params: Params, cfg, h: torch.Tensor,
-                   mode: str = "scan", remat: bool = False
+                   mode: str = "scan", remat: bool = False,
+                   specs: Optional[Params] = None, sp: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Runs the full block stack for training; returns (h, moe_aux), the
     float32 sum of the MoE layers' aux losses in layer order (0 for a
@@ -391,21 +451,29 @@ def forward_hidden(params: Params, cfg, h: torch.Tensor,
     instead of keeping its activations (``torch.utils.checkpoint``, the
     counterpart of ``jax.checkpoint`` around the scanned superblock); the
     aux carry passes through it with h.  The tail stays outside it, as in
-    the JAX package."""
+    the JAX package.  On a mesh ``specs`` (``train_specs``) places the
+    local params, each period's weights are gathered inside its
+    checkpoint, and ``sp`` says the residual is sequence-parallel."""
     _check_mode(mode)
     period, full, tail = _period(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    body_specs = None if specs is None else shd.tree_map_with_path(
+        lambda path, spec: spec[1:], specs["body"])     # a period's slice
 
     def superblock(h, aux, pslice):
+        pslice = _gathered(pslice, body_specs)
         for i, kind in enumerate(period):
-            h, aux = _block_fwd(pslice[f"b{i}"], cfg, kind, h, aux)
+            h, aux = _block_fwd(pslice[f"b{i}"], cfg, kind, h, aux, sp)
         return h, aux
 
     for pslice in _unbind(params["body"], full):
         h, aux = (checkpoint(superblock, h, aux, pslice, use_reentrant=False)
                   if remat else superblock(h, aux, pslice))
     for i, kind in enumerate(tail):
-        h, aux = _block_fwd(params["tail"][f"t{i}"], cfg, kind, h, aux)
+        key = f"t{i}"
+        p = _gathered(params["tail"][key],
+                      None if specs is None else specs["tail"][key])
+        h, aux = _block_fwd(p, cfg, kind, h, aux, sp)
     return h, aux
 
 
@@ -432,10 +500,12 @@ def _embed_tokens(params: Params, cfg, batch, sp: bool = False
 
 def _logits(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
     """Masked logits of final-normed h; under tensor parallelism the
-    vocab columns are gathered first, so every rank holds them all."""
+    vocab columns are gathered first, so every rank holds them all (the
+    gather's backward keeps this rank's columns of the cotangent, which
+    every rank computes alike)."""
     logits = h @ params["lm_head"]
     if shd.axis_size("model") > 1:
-        logits = coll.all_gather(logits, "model", dim=-1)
+        logits = coll.gather_replicated(logits, "model", dim=-1)
     return _mask_padded_vocab(cfg, logits)
 
 
@@ -450,17 +520,46 @@ def lm_loss(params: Params, cfg, batch, mode: str = "scan",
 
     As in the JAX ``lm_loss``, ``"xent"`` is the loss after the aux term
     is added (the reference rebinds ``loss`` before it builds the
-    metrics); the port keeps that, so the metrics match."""
-    h, aux = forward_hidden(params, cfg, _embed_tokens(params, cfg, batch),
-                            mode, remat)
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    metrics); the port keeps that, so the metrics match.
+
+    On a mesh ``params`` are this rank's training-layout blocks and
+    ``batch`` its batch block: the loss returned is the block's (what
+    ``train.loop`` differentiates), the metrics are averaged over the
+    batch axes, so every rank reports the global batch's."""
+    specs, sp = None, False
+    if shd.active_mesh() is not None:
+        check_mesh(cfg, train=True)
+        tp = shd.axis_size("model")
+        S = batch["tokens"].shape[1]
+        sp = tp > 1 and shd.SEQ_SHARD_ACTIVATIONS and S % tp == 0
+        if tp > 1 and cfg.is_moe and S % tp:
+            raise NotImplementedError(
+                f"training {cfg.name} at model={tp} takes a sequence that "
+                f"splits over model; got {S} tokens")
+        specs = train_specs(cfg, tp)
+
+    def top(name):
+        return _gathered(params[name], None if specs is None else
+                         specs[name])
+
+    embed = {"embed": top("embed")}
+    if cfg.frontend == "vision" and "image_embeds" in batch:
+        embed["vis_proj"] = top("vis_proj")
+    h, aux = forward_hidden(params, cfg, _embed_tokens(embed, cfg, batch, sp),
+                            mode, remat, specs, sp)
+    h = _sp_gather(rmsnorm(_tp_enter(h, sp), top("final_norm"),
+                           cfg.norm_eps), sp)
     if cfg.frontend == "vision" and "image_embeds" in batch:
         h = h[:, batch["image_embeds"].shape[1]:]
-    logits = _mask_padded_vocab(cfg, h @ params["lm_head"])
-    loss = softmax_xent(logits, batch["labels"])
+    loss = softmax_xent(_logits({"lm_head": top("lm_head")}, cfg, h),
+                        batch["labels"])
     if cfg.is_moe:
         loss = loss + aux_weight * aux
-    return loss, {"xent": loss, "moe_aux": aux}
+    metrics = {"xent": loss, "moe_aux": aux}
+    if specs is not None:
+        metrics = {k: coll.all_reduce(v.detach(), shd.BATCH_AXES, "avg")
+                   for k, v in metrics.items()}
+    return loss, metrics
 
 
 def _mask_padded_vocab(cfg, logits: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,12 @@ tensor.  At recurrentgemma-2b's 3.55e9 parameters the three float32
 trees hold 42.6 GB, so a second copy of them would not fit on one 80 GB
 card beside the params and gradients.  The state and params passed in
 are the ones returned, with the step advanced.
+
+On a mesh (``distributed.sharding.use_mesh``) the params, gradients and
+state are this rank's blocks (``mu``, ``nu`` and ``master`` placed as the
+params, ``opt_specs``), and ``update`` takes the params' specs: the clip
+norm is then the global one (``grad_sumsq``), and the update stays local,
+leaf by leaf.
 """
 from __future__ import annotations
 
@@ -42,6 +48,26 @@ def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
         yield tree
 
 
+def grad_sumsq(grads, specs=None) -> torch.Tensor:
+    """The float32 sum of squares of every gradient, a sum of per-leaf sums
+    (no concatenation).  With ``specs`` (a tree like ``grads`` of the
+    leaves' placement specs, on a mesh) each leaf's local sum is
+    all-reduced over the axes its spec shards it on, and a replicated
+    leaf, the same on every rank, counts once."""
+    sums = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    if specs is not None:
+        from ..distributed import collectives as coll
+        from ..distributed.sharding import spec_axes
+        groups: dict = {}
+        for i, spec in enumerate(tree_leaves(specs)):
+            groups.setdefault(spec_axes(spec), []).append(i)
+        for axes, idx in groups.items():
+            for i, s in zip(idx, coll.all_reduce_many(
+                    [sums[i] for i in idx], axes)):
+                sums[i] = s
+    return sum(sums)
+
+
 def _f32(x: float) -> float:
     """``x`` rounded to float32, as JAX's weak-typed scalars are."""
     return float(torch.tensor(x, dtype=torch.float32))
@@ -71,16 +97,14 @@ class AdamW:
         return float(self.lr(step)) if callable(self.lr) else self.lr
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, specs=None):
         """One step on ``grads`` (a tree like ``params``, any float dtype);
-        returns ``(params, state)``, both updated in place."""
+        returns ``(params, state)``, both updated in place.  ``specs``: the
+        params' placement on the active mesh, for the global clip norm."""
         step = state.step + 1
         scale = None
         if self.grad_clip:
-            # the clip norm as a sum of per-leaf sums: no concatenation
-            sq = sum(torch.sum(torch.square(g.float()))
-                     for g in tree_leaves(grads))
-            gnorm = torch.sqrt(sq + 1e-12)
+            gnorm = torch.sqrt(grad_sumsq(grads, specs) + 1e-12)
             scale = torch.clamp(self.grad_clip / gnorm, max=1.0)
         b1, b2 = self.b1, self.b2
         steps = torch.tensor(float(step), dtype=torch.float32)

@@ -306,3 +306,32 @@ def test_sharded_prefill_runs_with_jax_and_repro_blocked(tmp_path):
                          text=True, env=env, timeout=150)
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.splitlines()[-1] == "ok"
+
+
+def test_sharded_train_step_runs_with_jax_and_repro_blocked(tmp_path):
+    """A 2-rank gloo mesh (data 1, model 2) inits the qwen3-moe smoke
+    config in the training layout and takes two sharded train steps (the
+    all-to-all path's backward, the autograd collectives, the global clip
+    norm) where importing ``jax`` or ``repro`` fails in the launching
+    process; each rank checks that neither was imported on its way."""
+    out = str(tmp_path)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import os\n"
+        "from repro_torch.launch.mesh import spawn\n"
+        "import torch_train_ranks as R\n"
+        f"spawn(R.isolated_train_rank, 2, ({out!r},), timeout_s=120, "
+        f"store_dir={out!r})\n"
+        f"assert all(os.path.exists(os.path.join({out!r}, f'isolated-train-"
+        f"r{{r}}.pt')) for r in range(2))\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.')) "
+        "for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    tests = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=f"{PKG.parent}{os.pathsep}{tests}")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=150)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.splitlines()[-1] == "ok"
