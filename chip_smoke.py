@@ -406,7 +406,23 @@ Drives only the port (``src/repro_torch``; no JAX, nothing of ``repro``):
     kernel path against its plain version on card 0; (b) at world size 1
     and depth 3, bit for bit the unsharded ``make_train_step`` after one
     step; (c) at those shapes; and one line naming the checks that need
-    4 cards.
+    4 cards;
+31. the dry run (``launch/dryrun.py``, ``launch/op_analysis.py``)
+    against the card: (a) granite-moe-3b-a800m at full width and depth 3,
+    one training step at 1 x 4096 and a served prefill of 4 x 2000 then
+    one decode step, each counted on the card (``StepCounter``, after
+    ``reset_peak_memory_stats``) and as a dry run on ``meta``: dot FLOPs,
+    op-boundary bytes and each kernel op's tally equal, the tally's calls
+    the launches, and the dry run's peak within 10% of
+    ``max_memory_allocated`` (less what the card held before the
+    inputs); (b) inside phase 30 on 4 cards, each rank's counted step on
+    (data 2, model 2) against the dry run of its own rank on a fake world
+    of 4: the collectives by (op, group size) equal in calls and bytes,
+    dot FLOPs equal, the peak within 10%; (c) three production cells on
+    the card's host (qwen3-moe-30b-a3b x train_4k x single and
+    granite-moe-3b-a800m x decode_32k x multi ``ok``, minicpm3-4b x
+    prefill_32k x single ``not_ported``) with their counts a device; a
+    kernel-line entry for each flash and ``expert_matmul`` shape of (a).
 
 It prints the kernel line ``{"kernels": [...]}`` (one entry per kernel and
 main path, named by ``path``: flash attention has one for each serving
@@ -432,8 +448,13 @@ JSON line: run from the roots of two trees in turn, it compares their
     python3 chip_smoke.py --mesh
 
 builds the kernels and runs only phases 29 and 30 (on a machine with 4
-cards: the NCCL meshes), then prints their kernel line and the result
-line.
+cards: the NCCL meshes, and phase 31 (b) inside phase 30), then prints
+their kernel line and the result line.
+
+    python3 chip_smoke.py --dry-run
+
+builds the kernels and runs only phase 31 (a) and (c) on one card, then
+prints its kernel line and the result line.
 """
 from __future__ import annotations
 
@@ -662,6 +683,16 @@ TRAIN_MESH_B_DP, TRAIN_MESH_B_TP = 4, 2
 TRAIN_MESH_LIMIT_S = 300
 TRAIN_MESH_DP, TRAIN_MESH_TP, TRAIN_MESH_AUX_WEIGHT = 2, 2, 0.01
 TRAIN_MESH_ONE_CARD_DEPTH = 3
+# phase 31: the dry run against the card.  (a)'s depth (30 (b)'s on one
+# card); the dry run's peak against the card's: what the card allocates
+# below the dispatcher beyond ``op_analysis.WORKSPACE`` (cuBLAS's
+# workspace, the reductions' and sorts' own scratch) is all it misses;
+# (c)'s production cells and the status each must have
+DRY_DEPTH = TRAIN_MESH_ONE_CARD_DEPTH
+DRY_PEAK_RTOL = 0.10
+DRY_CELLS = (("qwen3-moe-30b-a3b", "train_4k", False, "ok"),
+             ("granite-moe-3b-a800m", "decode_32k", True, "ok"),
+             ("minicpm3-4b", "prefill_32k", False, "not_ported"))
 EXAMPLES = (
     ("torch_quickstart.py", ("--steps", "4"),
      ("oracle lower bound", "work exchange", "cache HIT")),
@@ -4511,11 +4542,11 @@ def live_phase(torch, dev) -> None:
 
 
 @contextlib.contextmanager
-def flash_tally():
+def flash_tally(keep: bool = True):
     """Count the flash kernel's launches by shape while the block runs:
-    {(B, Sq, Sk, Hq, Hkv, d, causal, window): launches}, and keep the
-    first call's inputs of each shape.  The wrapper still counts its
-    launches."""
+    {(B, Sq, Sk, Hq, Hkv, d, causal, window): launches}, and (``keep``)
+    keep the first call's inputs of each shape.  The wrapper still counts
+    its launches."""
     from repro_torch.kernels.flash_attention import ops
     fn = ops.flash_attention_cuda
     tally, first = {}, {}
@@ -4524,7 +4555,8 @@ def flash_tally():
         key = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
                q.shape[3], bool(causal), int(window))
         tally[key] = tally.get(key, 0) + 1
-        first.setdefault(key, (q, k, v, causal, window, scale))
+        if keep:
+            first.setdefault(key, (q, k, v, causal, window, scale))
         return fn(q, k, v, causal, window, scale)
 
     ops.flash_attention_cuda = wrapper
@@ -6164,14 +6196,17 @@ def leaf_checksums(torch, tree):
     return torch.stack(rows)
 
 
-def mesh_train_run(torch, dev, mesh, cfg, batch_b: int) -> dict:
+def mesh_train_run(torch, dev, mesh, cfg, batch_b: int,
+                   count: bool = False) -> dict:
     """30 (b) on a rank: ``cfg`` with the sharded init in the training
     layout, TRAIN_MESH_STEPS ``make_train_step`` steps (remat on) on one
     repeated batch of ``batch_b`` x TRAIN_MESH_S structured tokens, with
     the launches and the collectives counted over the steps; its init and
     step peaks, walls and metrics; the checksums of its params and master
     weights; one profiled step's device time and NCCL's share of it; and
-    the first flash call's inputs (for the kernel line)."""
+    the first flash call's inputs (for the kernel line).  With ``count``
+    one more step under ``op_analysis.StepCounter`` (phase 31 (b)): its
+    counts, and its peak less what the card held before the init."""
     from repro_torch.data import structured_unit
     from repro_torch.distributed import collectives as coll
     from repro_torch.distributed import sharding as shd
@@ -6185,6 +6220,7 @@ def mesh_train_run(torch, dev, mesh, cfg, batch_b: int) -> dict:
     with shd.use_mesh(mesh):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         params = model.init(seed=0, device=dev, fsdp=True)
         torch.cuda.synchronize()
@@ -6235,6 +6271,17 @@ def mesh_train_run(torch, dev, mesh, cfg, batch_b: int) -> dict:
         rec["busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
         rec["nccl_ms"] = sum(e.self_device_time_total for e in events
                              if "nccl" in e.key.lower()) / 1e3
+        if count:
+            from repro_torch.launch.dryrun import count_train
+            whole = {k: torch.as_tensor(v, device=dev).long()
+                     for k, v in batch.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            rec["counts"] = count_train(model, opt, params, state, whole)
+            torch.cuda.synchronize()
+            rec["counted_peak"] = torch.cuda.max_memory_allocated(dev) \
+                - base
+            del whole
         del params, state, opt, step
     torch.cuda.empty_cache()
     return rec
@@ -6262,7 +6309,8 @@ def train_mesh_rank(rank: int, out: str) -> None:
              TRAIN_MESH_B_DP),
             ("d2m2", mesh, cfg, TRAIN_MESH_B_TP)):
         t0 = time.perf_counter()
-        rec[label] = mesh_train_run(torch, dev, m, c, b)
+        rec[label] = mesh_train_run(torch, dev, m, c, b,
+                                    count=label == "d2m2")
         rec[label]["s"] = time.perf_counter() - t0
     torch.save(rec, os.path.join(out, f"train-mesh-r{rank}.pt"))
 
@@ -6488,6 +6536,7 @@ def train_mesh_phase(torch, dev) -> list:
                      TRAIN_MESH_B_DP, 4, 1)
         train_report(torch, [r["d2m2"] for r in recs], cfg, "d2m2",
                      TRAIN_MESH_B_TP, 2, TRAIN_MESH_TP)
+        dry_mesh_ranks(torch, cfg, [r["d2m2"] for r in recs])
         launched = {"d4m1": (recs[0]["d4m1"]["flash_shapes"],
                              recs[0]["d4m1"]["gmm_shapes"]),
                     "d2m2": (recs[0]["d2m2"]["flash_shapes"],
@@ -6539,6 +6588,244 @@ def train_mesh_phase(torch, dev) -> list:
             entry["launched"] = where
             entries.append(entry)
     print(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+def count_gaps(card: dict, dry: dict, rows: int = 6) -> str:
+    """The aten ops whose calls, FLOPs or bytes differ between two counts
+    (``StepCounter``'s ``by_op``), for a failure's message."""
+    gaps = [(k, card["by_op"].get(k), dry["by_op"].get(k))
+            for k in sorted(set(card["by_op"]) | set(dry["by_op"]))
+            if card["by_op"].get(k) != dry["by_op"].get(k)]
+    return "; ".join(f"{k}: card {a}, dry run {b}"
+                     for k, a, b in gaps[:rows]) or "no aten op differs"
+
+
+def held_counts(label: str, card: dict, dry: dict, card_peak: int,
+                launches: dict) -> list:
+    """Print one step's counts on the card beside its dry run's; return
+    the problems: dot FLOPs, op-boundary bytes and each kernel op's tally
+    must be equal, the tally's calls the launches, and the dry run's peak
+    within ``DRY_PEAK_RTOL`` of the card's."""
+    problems = []
+    rel = (dry["peak_bytes"] - card_peak) / card_peak
+    print(f"  (a) {label}: dot FLOPs card {card['dot_flops']:.6e}, dry run "
+          f"{dry['dot_flops']:.6e} (aten {dry['aten_flops']:.6e}); "
+          f"op-boundary bytes card {card['mem_bytes']}, dry run "
+          f"{dry['mem_bytes']}; peak card {card_peak / 1e9:.3f} GB "
+          f"(max_memory_allocated less what the card held before the "
+          f"inputs), dry run {dry['peak_bytes'] / 1e9:.3f} GB ({rel:+.2%}; "
+          f"inputs {dry['input_bytes'] / 1e9:.3f} GB, the card's own "
+          f"tracker {card['peak_bytes'] / 1e9:.3f} GB); kernel ops "
+          f"{dry['kernel_ops']}; launches {launches}")
+    for key in ("dot_flops", "mem_bytes", "kernel_ops"):
+        if card[key] != dry[key]:
+            problems.append(f"{label} {key}: card {card[key]}, dry run "
+                            f"{dry[key]} ({count_gaps(card, dry)})")
+    calls = {k: int(v["calls"]) for k, v in card["kernel_ops"].items()}
+    if calls != {k: v for k, v in launches.items() if v}:
+        problems.append(f"{label}: tally calls {calls}, launches {launches}")
+    if abs(rel) > DRY_PEAK_RTOL:
+        problems.append(f"{label}: the dry run's peak is {rel:+.2%} of the "
+                        f"card's")
+    return problems
+
+
+def dry_one_card(torch, dev) -> tuple:
+    """31 (a): granite at full width and depth ``DRY_DEPTH``, one training
+    step at 1 x TRAIN_MESH_S and a served prefill of MOE_B x MOE_PROMPT
+    then one decode step, each counted on the card and dry-run on
+    ``meta``.  Returns (problems, {(kind, shape): launches} of the card's
+    runs)."""
+    import dataclasses
+    from repro_torch.configs import get_config, resolve_for_tp
+    from repro_torch.data import structured_unit
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    cfg = dataclasses.replace(resolve_for_tp(get_config(MOE_ARCH), 1),
+                              n_layers=DRY_DEPTH)
+    model = build_model(cfg)
+    meta = torch.device("meta")
+    problems, shapes = [], {}
+
+    def on_card(run):
+        """``run()`` on the card with the peak and launches reset first;
+        (its counts, peak, launches); shapes by kernel gathered."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launch_counts()
+        with flash_tally(keep=False) as (ftally, _), gmm_tally() as gtally:
+            out = run()
+            torch.cuda.synchronize()
+        for key, n in ftally.items():
+            shapes[("flash", key)] = shapes.get(("flash", key), 0) + n
+        for key, n in gtally.items():
+            shapes[("gmm", key)] = shapes.get(("gmm", key), 0) + n
+        return out, torch.cuda.max_memory_allocated(dev) - base, \
+            dict(_build.LAUNCH_COUNTS)
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params = model.init(seed=0, device=dev)
+    opt = AdamW(lr=constant(TRAIN_LR))
+    state = opt.init(params)
+    batch = {k: torch.as_tensor(v, device=dev).long() for k, v in
+             structured_unit(0, 1, TRAIN_MESH_S, cfg.vocab_size).items()}
+    card, peak, launches = on_card(lambda: D.count_train(
+        model, opt, params, state, batch))
+    del params, state, batch
+    mp = model.param_specs()
+    mstate = opt.init(mp)
+    dry = D.count_train(model, opt, mp, mstate, {
+        k: torch.empty((1, TRAIN_MESH_S), dtype=torch.int64, device=meta)
+        for k in ("tokens", "labels")})
+    problems += held_counts(f"train step 1 x {TRAIN_MESH_S}", card, dry,
+                            peak, launches)
+    torch.cuda.empty_cache()
+
+    base = torch.cuda.memory_allocated(dev)
+    s_max = MOE_PROMPT + MOE_STEPS
+    params = model.init(seed=0, device=dev)
+    cache = model.init_cache(MOE_B, s_max, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (MOE_B, MOE_PROMPT),
+                                      generator=gen, device=dev)}
+    (card, cache), peak, launches = on_card(
+        lambda: D.count_prefill(model, params, prompt, cache))
+    del prompt
+    tok = torch.randint(0, cfg.vocab_size, (MOE_B, 1), generator=gen,
+                        device=dev)
+    (card_d, cache), peak_d, launches_d = on_card(
+        lambda: D.count_decode(model, params, cache, tok))
+    del params, cache, tok
+    dry, mcache = D.count_prefill(model, mp, {"tokens": torch.empty(
+        (MOE_B, MOE_PROMPT), dtype=torch.int64, device=meta)},
+        D.meta_cache(model, MOE_B, s_max))
+    dry_d, _ = D.count_decode(model, mp, mcache, torch.empty(
+        (MOE_B, 1), dtype=torch.int64, device=meta))
+    problems += held_counts(f"prefill {MOE_B} x {MOE_PROMPT}", card, dry,
+                            peak, launches)
+    problems += held_counts(f"decode step at {MOE_PROMPT} of {s_max}",
+                            card_d, dry_d, peak_d, launches_d)
+    torch.cuda.empty_cache()
+    return problems, shapes
+
+
+def dry_mesh_ranks(torch, cfg, recs: list) -> None:
+    """31 (b): each rank's counted step of phase 30 (b) on (data 2, model
+    2) against the dry run of its own rank on a fake world of 4: the
+    collectives by (op, group size) equal in calls and bytes, dot FLOPs
+    equal, the peak within ``DRY_PEAK_RTOL``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, constant
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    problems = []
+    print(f"phase 31 (b): each rank's counted step of 30 (b) on (data 2, "
+          f"model 2) against its own rank's dry run on a fake world of 4")
+    for r, rec in enumerate(recs):
+        card = rec["counts"]
+        with D.fake_world(4, r):
+            mesh = make_host_mesh(model=TRAIN_MESH_TP)
+            with shd.use_mesh(mesh):
+                params = D.meta_params(model, fsdp=True)
+                opt = AdamW(lr=constant(TRAIN_LR))
+                dry = D.count_train(model, opt, params, opt.init(params), {
+                    k: torch.empty((TRAIN_MESH_B_TP, TRAIN_MESH_S),
+                                   dtype=torch.int64, device="meta")
+                    for k in ("tokens", "labels")})
+        rel = (dry["peak_bytes"] - rec["counted_peak"]) / rec["counted_peak"]
+        colls = {k: (int(v["calls"]), int(v["bytes"]))
+                 for k, v in card["collectives"].items()}
+        dry_colls = {k: (int(v["calls"]), int(v["bytes"]))
+                     for k, v in dry["collectives"].items()}
+        same = "the same" if colls == dry_colls else dry_colls
+        print(f"  rank {r} {rec['coord']}: collectives (calls, bytes) card "
+              f"{colls}, dry run {same}; "
+              f"dot FLOPs card {card['dot_flops']:.6e}, dry run "
+              f"{dry['dot_flops']:.6e}; op-boundary bytes card "
+              f"{card['mem_bytes']}, dry run {dry['mem_bytes']}; peak card "
+              f"{rec['counted_peak'] / 1e9:.3f} GB, dry run "
+              f"{dry['peak_bytes'] / 1e9:.3f} GB ({rel:+.2%}); wire bytes "
+              f"a step {card['total_collective_bytes']:.6e}")
+        if colls != dry_colls:
+            problems.append(f"rank {r} collectives {colls} vs {dry_colls}")
+        if card["dot_flops"] != dry["dot_flops"]:
+            problems.append(f"rank {r} dot FLOPs {card['dot_flops']} vs "
+                            f"{dry['dot_flops']} ({count_gaps(card, dry)})")
+        if abs(rel) > DRY_PEAK_RTOL:
+            problems.append(f"rank {r}: the dry run's peak is {rel:+.2%} "
+                            f"of the card's")
+    print(f"  phase 31 (b) took {time.perf_counter() - t0:.1f} s")
+    if problems:
+        fail("phase 31 (b): " + "; ".join(problems))
+
+
+def dry_run_phase(torch, dev) -> list:
+    """Phase 31; returns its kernels-line entries."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as D
+    t_phase = time.perf_counter()
+    print(f"phase 31: the dry run (launch/dryrun.py, op_analysis."
+          f"StepCounter) held against the card -- {MOE_ARCH} at full width, "
+          f"depth {DRY_DEPTH}")
+    if dist.is_initialized():
+        fail("phase 31: a process group is still initialised")
+    problems, shapes = dry_one_card(torch, dev)
+    if problems:
+        fail("phase 31 (a): " + "; ".join(problems))
+    print(f"  phase 31 needs 4 cards for (b), which python3 chip_smoke.py "
+          f"--mesh runs with phase 30")
+    for arch, shape, multi, want in DRY_CELLS:
+        t0 = time.perf_counter()
+        res = D.lower_cell(arch, shape, multi)
+        got = D.status(res)
+        line = (f"  (c) {arch} x {shape} x {'multi' if multi else 'single'}"
+                f": {got} in {time.perf_counter() - t0:.1f} s")
+        if got == "ok":
+            h = res["hlo"]
+            line += (f": peak {res['memory']['peak_bytes_est'] / 2**30:.3f}"
+                     f" GiB a device, dot FLOPs {h['dot_flops']:.4e}, "
+                     f"op-boundary bytes {h['mem_bytes'] / 2**30:.1f} GiB, "
+                     f"collectives {h['total_collective_bytes'] / 2**30:.3f}"
+                     f" GiB in {sum(h['collective_counts'].values())} calls "
+                     f"{h['collective_counts']}")
+        else:
+            line += f" ({res.get('item')}: {res['reason'][:100]})"
+        print(line)
+        if got != want:
+            fail(f"phase 31 (c): {arch} x {shape} is {got}; want {want}")
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    entries = []
+    path = f"dry run check {MOE_ARCH} depth {DRY_DEPTH}"
+    per = "in (a)'s train step, prefill and decode step"
+    for (kind, key), n in sorted(shapes.items()):
+        if kind == "gmm":
+            entries.append(gmm_entry(torch, dev, path, key, n, per))
+            continue
+        B, Sq, Sk, Hq, Hkv, d, causal, window = key
+        call = (draw((B, Sq, Hq, d), torch.bfloat16),
+                draw((B, Sk, Hkv, d), torch.bfloat16),
+                draw((B, Sk, Hkv, d), torch.bfloat16), causal, window, None)
+        ok, entry = zoo_flash_entry(torch, draw, path, n, call, (d, d), per)
+        if not ok:
+            fail(f"phase 31: flash at {key} against plain")
+        entries.append(entry)
+    print(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s")
     return entries
 
 
@@ -6913,9 +7200,9 @@ def main() -> None:
     if sys.argv[1:] == ["--granite-serve"]:
         granite_serve(torch, dev)
         return
-    if sys.argv[1:] not in ([], ["--mesh"]):
+    if sys.argv[1:] not in ([], ["--mesh"], ["--dry-run"]):
         fail(f"unknown arguments {sys.argv[1:]}; the options are "
-             f"--granite-serve and --mesh")
+             f"--granite-serve, --mesh and --dry-run")
 
     # 2. build every kernel from the checkout's sources, all at once
     from repro_torch.kernels import _build
@@ -6928,10 +7215,12 @@ def main() -> None:
     for lib, build_s in built.values():
         print(f"build: {lib.relative_to(ROOT)} in {build_s:.2f} s")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s wall")
-    if sys.argv[1:] == ["--mesh"]:
-        mesh_kernels = mesh_phase(torch, dev)
-        mesh_kernels += train_mesh_phase(torch, dev)
-        print(json.dumps({"kernels": mesh_kernels}))
+    if sys.argv[1:] in (["--mesh"], ["--dry-run"]):
+        if sys.argv[1:] == ["--mesh"]:
+            alone = mesh_phase(torch, dev) + train_mesh_phase(torch, dev)
+        else:
+            alone = dry_run_phase(torch, dev)
+        print(json.dumps({"kernels": alone}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -7134,6 +7423,8 @@ def main() -> None:
     clock("phase 29")
     train_mesh_kernels = train_mesh_phase(torch, dev)
     clock("phase 30")
+    dry_kernels = dry_run_phase(torch, dev)
+    clock("phase 31")
     print(json.dumps({"kernels": [{
         "name": "we_rounds", "path": "fig5 panel", "route": "cuda",
         "source": "src/repro_torch/csrc/we_rounds.cu",
@@ -7145,7 +7436,7 @@ def main() -> None:
         "library_ms": None}] + serve_kernels + moe_kernels
         + train_kernels + het_kernels + experiment_kernels
         + zoo_kernels + fluid_kernels + mesh_kernels
-        + train_mesh_kernels}))
+        + train_mesh_kernels + dry_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

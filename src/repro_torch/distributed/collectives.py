@@ -51,8 +51,9 @@ run the same wrappers forward and backward (so both are tallied):
 ``COUNTS`` tallies each call by ``(op, group size)``: calls, payload
 bytes (the input's) and wire bytes a rank under ring algorithms, the
 factors ``repro.launch.hlo_analysis._wire_bytes`` gives XLA's
-collectives.  It is the port's collective accounting; with remat it
-counts the backward's re-gathers, as the JAX package's HLO does.
+collectives (those of float32 payloads also as ``f32_wire_bytes``).  It
+is the port's collective accounting; with remat it counts the
+backward's re-gathers, as the JAX package's HLO does.
 """
 from __future__ import annotations
 
@@ -84,12 +85,17 @@ def _wire_bytes(op: str, nbytes: int, out_bytes: int, n: int) -> float:
     return nbytes * f                     # reduce_scatter, all_to_all
 
 
-def _tally(op: str, n: int, nbytes: int, out_bytes: int) -> None:
+def _tally(op: str, n: int, x: torch.Tensor, out: torch.Tensor) -> None:
     row = COUNTS.setdefault((op, n), {"calls": 0, "bytes": 0,
-                                      "wire_bytes": 0.0})
+                                      "wire_bytes": 0.0,
+                                      "f32_wire_bytes": 0.0})
+    nbytes = _nbytes(x)
+    wire = _wire_bytes(op, nbytes, _nbytes(out), n)
     row["calls"] += 1
     row["bytes"] += nbytes
-    row["wire_bytes"] += _wire_bytes(op, nbytes, out_bytes, n)
+    row["wire_bytes"] += wire
+    if x.dtype == torch.float32:
+        row["f32_wire_bytes"] += wire
 
 
 def _axes(axes: Axes) -> Tuple[str, ...]:
@@ -123,7 +129,7 @@ def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
-    _tally("all_to_all", n, _nbytes(x), _nbytes(out))
+    _tally("all_to_all", n, x, out)
     return out
 
 
@@ -135,7 +141,7 @@ def all_reduce(x: torch.Tensor, axes: Axes, op: str = "sum"
     for n, group in _groups(axes):
         x = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(x, op=red, group=group)
-        _tally("all_reduce", n, _nbytes(x), _nbytes(x))
+        _tally("all_reduce", n, x, x)
     return x
 
 
@@ -165,7 +171,7 @@ def all_gather(x: torch.Tensor, axes: Axes, dim: int = 0) -> torch.Tensor:
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((n * src.shape[0], *src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=group)
-        _tally("all_gather", n, _nbytes(src), _nbytes(out))
+        _tally("all_gather", n, src, out)
         x = out.movedim(0, dim)
     return x.contiguous()
 
@@ -180,7 +186,7 @@ def reduce_scatter(x: torch.Tensor, axes: Axes, dim: int = 0
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=group)
-        _tally("reduce_scatter", n, _nbytes(src), _nbytes(out))
+        _tally("reduce_scatter", n, src, out)
         x = out.movedim(0, dim)
     return x.contiguous()
 

@@ -2,11 +2,15 @@
 ``jax.custom_vjp`` op (``repro.kernels.flash_attention.ops``).
 
 The forward dispatches by device: a CUDA tensor launches the hand-written
-kernel, a CPU tensor runs the plain version; nothing falls back from one
-to the other.  The backward recomputes attention through the plain
-version and differentiates it, as the JAX package does (it has no
-backward kernel): the numbers of ``ref.py``'s gradient, with the score
-matrix alive only inside the backward of one layer.
+kernel, a CPU tensor runs the plain version, a ``meta`` tensor makes the
+kernel's output (``torch.empty`` of its shape and dtype, contiguous, and
+nothing else, as the CUDA wrapper allocates only its output); nothing
+falls back from one to another.  Each dispatch is tallied in
+``kernels.tally.OP_TALLY["flash_attention"]`` on every device.  The
+backward recomputes attention through the plain version and
+differentiates it, as the JAX package does (it has no backward kernel):
+the numbers of ``ref.py``'s gradient, with the score matrix alive only
+inside the backward of one layer.
 """
 from __future__ import annotations
 
@@ -14,14 +18,23 @@ from typing import Optional
 
 import torch
 
+from .. import tally
 from .kernel import flash_attention_cuda
 from .ref import attention_ref
 
 
-def _attend(q, k, v, causal: bool, window: int, scale: Optional[float]):
+def _dispatch(q, k, v, causal: bool, window: int, scale: Optional[float]):
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal, window, scale)
+    if q.is_meta:
+        return q.new_empty(q.shape)
     return attention_ref(q, k, v, causal, window, scale)
+
+
+def _attend(q, k, v, causal: bool, window: int, scale: Optional[float]):
+    flops, nbytes = tally.flash_work(q, k, v, causal, window)
+    return tally.run("flash_attention", flops, nbytes, _dispatch, q, k, v,
+                     causal, window, scale)
 
 
 class FlashAttention(torch.autograd.Function):

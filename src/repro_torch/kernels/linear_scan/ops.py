@@ -6,23 +6,33 @@ Backward of h_t = a_t h_{t-1} + b_t:
     da_t = db_t * h_{t-1}
 so the backward runs the SAME scan on reversed inputs.  Every scan, the
 forward's and the backward's, dispatches by device: a CUDA tensor
-launches the hand-written kernel, a CPU tensor runs the plain version.
-Nothing falls back from one to the other.  The CPU therefore runs the
-same backward formula around the plain scan, which is how the tests hold
-the formula against autograd of the plain loop.
+launches the hand-written kernel, a CPU tensor runs the plain version, a
+``meta`` tensor makes the kernel's output (``torch.empty`` like ``a``).
+Nothing falls back from one to another, so the CPU runs the same
+backward formula around the plain scan, which is how the tests hold the
+formula against autograd of the plain loop.  Each scan is tallied in
+``kernels.tally.OP_TALLY["linear_scan"]`` on every device.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import tally
 from .kernel import linear_scan_cuda
 from .ref import linear_scan_ref
 
 
-def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _dispatch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         return linear_scan_cuda(a, b)
+    if a.is_meta:
+        return a.new_empty(a.shape)
     return linear_scan_ref(a, b)
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    flops, nbytes = tally.scan_work(a, b)
+    return tally.run("linear_scan", flops, nbytes, _dispatch, a, b)
 
 
 class LinearScan(torch.autograd.Function):

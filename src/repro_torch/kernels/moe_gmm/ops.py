@@ -1,9 +1,12 @@
 """The differentiable batched expert product.
 
 Forward and backward dispatch by device: a CUDA tensor launches the
-hand-written kernel, a CPU tensor runs the plain version; nothing falls
-back from one to the other.  The backward of Y = X W per expert is two
-more products through the same op, on transposed contiguous operands:
+hand-written kernel, a CPU tensor runs the plain version, a ``meta``
+tensor makes the kernel's output (``torch.empty`` of (E, C, F) in buf's
+dtype, contiguous); nothing falls back from one to another.  Each
+product is tallied in ``kernels.tally.OP_TALLY["expert_matmul"]`` on
+every device.  The backward of Y = X W per expert is two more products
+through the same op, on transposed contiguous operands:
     dX = dY W^T       (E, C, F) x (E, F, D)
     dW = X^T dY       (E, D, C) x (E, C, F)
 (The JAX package's MoE computes the products with einsum and lets XLA
@@ -13,14 +16,22 @@ from __future__ import annotations
 
 import torch
 
+from .. import tally
 from .kernel import expert_matmul_cuda
 from .ref import expert_matmul_ref
 
 
-def _matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _dispatch(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if buf.is_cuda:
         return expert_matmul_cuda(buf, w)
+    if buf.is_meta:
+        return buf.new_empty((*buf.shape[:2], w.shape[2]))
     return expert_matmul_ref(buf, w)
+
+
+def _matmul(buf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    flops, nbytes = tally.expert_work(buf, w)
+    return tally.run("expert_matmul", flops, nbytes, _dispatch, buf, w)
 
 
 class ExpertMatmul(torch.autograd.Function):

@@ -102,6 +102,14 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)   # round up to 8
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as float32, by the same ops on every device
+    (``F.one_hot`` checks its classes on the CPU, scatters on CUDA and
+    compares on ``meta``, so a step's accounting would differ between
+    the card and its dry run)."""
+    return (idx.unsqueeze(-1) == torch.arange(n, device=idx.device)).float()
+
+
 def _router(p: Params, cfg, xf: torch.Tensor):
     """float32 router over xf (T, D): returns (top_p (T, K) renormalised,
     top_e (T, K), the Switch load-balancing aux loss)."""
@@ -111,7 +119,7 @@ def _router(p: Params, cfg, xf: torch.Tensor):
     top_p, top_e = torch.topk(probs, K, dim=-1)              # (T, K)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     me = probs.mean(0)                                       # (E,)
-    ce = F.one_hot(top_e[:, 0], E).float().mean(0)
+    ce = _one_hot(top_e[:, 0], E).mean(0)
     aux = E * torch.sum(me * ce)
     return top_p, top_e, aux
 
@@ -256,8 +264,8 @@ def route_local(p: Params, cfg, x: torch.Tensor):
     # globally exact load-balance loss: average the per-expert vectors
     # across shards BEFORE the product (== the unsharded computation)
     me = coll.mean_over_all(probs[:, :E].mean(0), ALL_AXES)
-    ce = coll.all_reduce(F.one_hot(top_e[:, 0], E_pad)[:, :E].float()
-                         .mean(0), ALL_AXES, "avg")
+    ce = coll.all_reduce(_one_hot(top_e[:, 0], E_pad)[:, :E].mean(0),
+                         ALL_AXES, "avg")
     aux = E * torch.sum(me * ce)
     c_send = max(4, -(-int(t * K * cfg.capacity_factor / E_pad) // 4) * 4)
     flat_e = top_e.reshape(-1)

@@ -29,6 +29,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..distributed import sharding as shd
+from ..kernels import tally
 from . import encdec as encdec_mod
 from . import transformer as tf_mod
 
@@ -76,7 +77,8 @@ class Model:
 
     def param_specs(self) -> Any:
         """The parameter tree's shapes and dtypes on the ``meta`` device."""
-        return self._init(None, torch.device("meta"))
+        with tally.shapes_only():
+            return self._init(None, torch.device("meta"))
 
     # -- train --------------------------------------------------------------
 
@@ -105,14 +107,28 @@ class Model:
 
     def init_cache(self, batch: int, s_max: int, device=DEFAULT_DEVICE):
         """Zero caches for ``batch`` requests of up to ``s_max`` tokens;
-        on a mesh, this rank's blocks of them (``cache_specs`` with the
-        batch over the data axes)."""
+        on a mesh, this rank's blocks of them (``local_cache_specs``)."""
         dev = resolve_device(device)
+        if shd.active_mesh() is None:
+            return self._cache(batch, s_max, dev)
+
+        def zeros(path, leaf):
+            if not isinstance(leaf, torch.Tensor):
+                return leaf
+            return torch.zeros(leaf.shape, dtype=leaf.dtype, device=dev)
+
+        return shd.tree_map_with_path(zeros,
+                                      self.local_cache_specs(batch, s_max))
+
+    def local_cache_specs(self, batch: int, s_max: int) -> Any:
+        """This rank's blocks of the serving cache on the ``meta`` device
+        (``cache_specs`` with the batch over the data axes; the whole
+        cache outside a mesh)."""
+        whole = self.cache_specs(batch, s_max)
         mesh = shd.active_mesh()
         if mesh is None:
-            return self._cache(batch, s_max, dev)
+            return whole
         tf_mod.check_mesh(self.cfg)
-        whole = self.cache_specs(batch, s_max)
         specs = shd.cache_specs(self.cfg, whole, shd.BATCH_AXES,
                                 shd.axis_size("model"))
 
@@ -120,13 +136,14 @@ class Model:
             if not isinstance(leaf, torch.Tensor):
                 return leaf
             shape = shd.local_shape(leaf.shape, shd.leaf_at(specs, path), mesh)
-            return torch.zeros(shape, dtype=leaf.dtype, device=dev)
+            return torch.empty(shape, dtype=leaf.dtype, device="meta")
 
         return shd.tree_map_with_path(local, whole)
 
     def cache_specs(self, batch: int, s_max: int) -> Any:
         """The serving cache's shapes and dtypes on the ``meta`` device."""
-        return self._cache(batch, s_max, torch.device("meta"))
+        with tally.shapes_only():
+            return self._cache(batch, s_max, torch.device("meta"))
 
     def prefill(self, params, batch, cache, mode: str = "unroll"):
         if self.is_encdec:

@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed import collectives as coll
 from ..distributed import sharding as shd
+from ..kernels import tally
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
@@ -414,9 +415,9 @@ def _unbind(tree: Any, n: int) -> List[Any]:
 def train_specs(cfg, tp: int) -> Params:
     """``param_specs(fsdp=True)`` of ``cfg``'s parameter tree at ``tp``:
     the training layout that ``lm_loss`` takes on a mesh."""
-    return shd.param_specs(cfg, init_lm_params(cfg, None,
-                                               torch.device("meta")),
-                           tp, fsdp=True)
+    with tally.shapes_only():
+        whole = init_lm_params(cfg, None, torch.device("meta"))
+    return shd.param_specs(cfg, whole, tp, fsdp=True)
 
 
 def _gathered(tree: Any, specs: Any) -> Any:
