@@ -16,16 +16,12 @@ in ``OP_TALLY[name]`` on every device, by a closed form of the shapes:
 
 While the op runs, ``inside()`` is true, so a counter of aten ops
 (``launch.op_analysis.StepCounter``) leaves out the plain version's aten
-ops on the CPU: a CPU run counts what the card counts.  It is true too
-inside ``shapes_only()``, which marks the building of shape specs on
-``meta`` that a step may do on first use (a model's parameter specs):
-no device's work, so no count's.  Each function of ``HOOKS`` is called
-with the op's name and output after it returns (the counter's peak
-tracker takes the output there).
+ops on the CPU: a CPU run counts what the card counts.  Each function
+of ``HOOKS`` is called with the op's name and output after it returns
+(the counter's peak tracker takes the output there).
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -42,18 +38,8 @@ def reset_tally() -> None:
 
 def inside() -> bool:
     """True while a kernel op's kernel, plain version or ``meta`` branch
-    runs, or inside ``shapes_only()``."""
+    runs."""
     return _DEPTH[0] > 0
-
-
-@contextlib.contextmanager
-def shapes_only():
-    """Mark the block as building shape specs on ``meta``, not counted."""
-    _DEPTH[0] += 1
-    try:
-        yield
-    finally:
-        _DEPTH[0] -= 1
 
 
 def run(name: str, flops: float, nbytes: int, fn: Callable, *args):

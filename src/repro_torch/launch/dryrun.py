@@ -4,12 +4,12 @@
         --arch granite-moe-3b-a800m --shape train_4k --mesh single
 
 For every (arch x shape x mesh) cell of the JAX package's sweep it runs
-one step of rank ``rank`` (0 by default) of the production mesh, (data
-16, model 16) = 256 ranks or (pod 2, data 16, model 16) = 512, on a
-``fake`` process group of that many ranks in this one process: every
-tensor is a ``meta`` tensor (a shape and a dtype, no memory), every
-collective is ``torch.distributed``'s on the fake group, and the kernel
-ops take their ``meta`` branch.  No card is needed.  The step runs
+one step of rank 0 of the production mesh, (data 16, model 16) = 256
+ranks or (pod 2, data 16, model 16) = 512, on a ``fake`` process group
+of that many ranks in this one process: every tensor is a ``meta``
+tensor (a shape and a dtype, no memory), every collective is
+``torch.distributed``'s on the fake group, and the kernel ops take
+their ``meta`` branch.  No card is needed.  The step runs
 under ``launch.op_analysis.StepCounter``, which reads per device what
 the JAX package's ``lower_cell`` reads from the compiled HLO: the peak
 of live bytes, dot FLOPs, op-boundary bytes and collective wire bytes.
@@ -27,8 +27,9 @@ How it differs from the JAX package's:
   update params, optimizer state and cache in place, which is what
   donation buys the JAX package;
 * a train cell runs the port's sharded step, which takes the training
-  layout (FSDP over ``data``) only, so ``--no-fsdp`` serves no train
-  cell.
+  layout (FSDP over ``data``) only, so there is no ``--no-fsdp``: the
+  JSON's ``fsdp`` says the layout the step took (the training layout
+  for a train cell, the serving layout for prefill and decode).
 
 Cells the port cannot run yet are written as ``{"not_ported": true,
 "item": ..., "reason": ...}`` (ROADMAP Queue 1), never as a pass: item
@@ -69,10 +70,11 @@ TP = 16
 @contextlib.contextmanager
 def fake_world(world_size: int, rank: int = 0):
     """A ``fake`` process group of ``world_size`` ranks, this process as
-    ``rank``, for the block (left as it is where one is initialised)."""
+    ``rank``, for the block; raises where a group is initialised."""
     if dist.is_initialized():
-        yield
-        return
+        raise RuntimeError(
+            f"fake_world({world_size}, {rank}): a process group of "
+            f"{dist.get_world_size()} ranks is initialised already")
     # importing the module registers the "fake" backend
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=rank,
@@ -129,8 +131,11 @@ def local_batch(batch):
 def count_train(model, opt, params, state, batch, mode: str = "unroll",
                 remat: bool = True, accum: int = 1) -> dict:
     """``make_train_step``'s step on ``params``, ``state`` and the whole
-    ``batch``, counted; the params and state are updated in place."""
+    ``batch``, counted; the params and state are updated in place.  On a
+    mesh the step's parameter specs are built first, outside the count."""
     step = make_train_step(model, opt, mode=mode, remat=remat, accum=accum)
+    if shd.active_mesh() is not None:
+        model.train_specs(shd.axis_size("model"))
     with StepCounter((params, state, batch)) as counter:
         step(params, state, batch)
     return counter.result()
@@ -155,15 +160,13 @@ def count_decode(model, params, cache, tokens, mode: str = "unroll"
 
 
 def trace_cell(model, shape, mode: str = "unroll", remat: bool = True,
-               fsdp: bool = True, accum: int = 1) -> dict:
+               accum: int = 1) -> dict:
     """One step of ``shape`` (train, prefill or decode) on ``meta`` on
-    the active mesh (or none), counted."""
+    the active mesh (or none), counted: a train step in the training
+    layout, prefill and decode in the serving layout."""
     B, S = shape.global_batch, shape.seq_len
     inputs = model.input_specs(shape)
     if shape.kind == "train":
-        if not fsdp and shd.active_mesh() is not None:
-            raise ValueError("the port's sharded training step takes the "
-                             "training layout (FSDP over 'data') only")
         params = meta_params(model, fsdp=True)
         opt = AdamW(lr=3e-4)
         return count_train(model, opt, params, opt.init(params), inputs,
@@ -188,9 +191,9 @@ def _not_ported(arch, shape_name, mesh_name, item, reason) -> dict:
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                mode: str = "unroll", remat: str = "full",
-               fsdp: bool = True, accum: int = 1, rank: int = 0) -> dict:
-    """Dry-run one (arch x shape x mesh) cell as rank ``rank``; returns
-    the result dict (the JAX package's keys where they mean the same)."""
+               accum: int = 1) -> dict:
+    """Dry-run one (arch x shape x mesh) cell as rank 0; returns the
+    result dict (the JAX package's keys where they mean the same)."""
     shape = SHAPES[shape_name]
     mesh_name = "multi" if multi_pod else "single"
     cfg = resolve_for_tp(get_config(arch), TP)
@@ -199,7 +202,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                 "reason": "full-attention arch: long_500k inapplicable"}
     world = 512 if multi_pod else 256
     model = build_model(cfg)
-    with fake_world(world, rank):
+    with fake_world(world):
         mesh = make_production_mesh(multi_pod=multi_pod)
         n_dev = mesh.mesh.numel()
         with shd.use_mesh(mesh):
@@ -219,7 +222,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                     f"package)")
             t0 = time.perf_counter()
             counts = trace_cell(model, shape, mode, remat != "none",
-                                fsdp, accum)
+                                accum)
             trace_s = time.perf_counter() - t0
     hlo = {k: counts[k] for k in (
         "collective_bytes", "collective_counts", "dot_flops",
@@ -228,8 +231,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "collectives")}
     result = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
-        "n_devices": n_dev, "rank": rank, "mode": mode, "remat": remat,
-        "fsdp": fsdp, "accum": accum, "batch_shardable": shardable,
+        "n_devices": n_dev, "mode": mode, "remat": remat,
+        "fsdp": shape.is_train, "accum": accum,
+        "batch_shardable": shardable,
         "trace_s": round(trace_s, 2),
         "memory": {"argument_bytes": counts["input_bytes"],
                    "peak_bytes_est": counts["peak_bytes"]},
@@ -288,9 +292,7 @@ def main(argv=None):
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--mode", default="unroll", choices=["unroll", "scan"])
     ap.add_argument("--remat", default="full", choices=["full", "none"])
-    ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--accum", type=int, default=1)
-    ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--out", default="results/dryrun_torch")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--tag", default="")
@@ -316,9 +318,7 @@ def main(argv=None):
                 continue
             try:
                 res = lower_cell(arch, shape, args.mesh == "multi",
-                                 args.mode, args.remat,
-                                 fsdp=not args.no_fsdp, accum=args.accum,
-                                 rank=args.rank)
+                                 args.mode, args.remat, accum=args.accum)
                 if status(res) != "ok":
                     print(f"[dryrun] {arch} x {shape} x {args.mesh}: "
                           f"{status(res)} {res.get('item', '')} "

@@ -22,6 +22,7 @@ serving layout.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
@@ -29,7 +30,6 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..distributed import sharding as shd
-from ..kernels import tally
 from . import encdec as encdec_mod
 from . import transformer as tf_mod
 
@@ -77,8 +77,13 @@ class Model:
 
     def param_specs(self) -> Any:
         """The parameter tree's shapes and dtypes on the ``meta`` device."""
-        with tally.shapes_only():
-            return self._init(None, torch.device("meta"))
+        return self._init(None, torch.device("meta"))
+
+    def train_specs(self, tp: int) -> Any:
+        """The training layout (``param_specs(fsdp=True)``) at ``tp``,
+        built once a (config, tp): what ``loss`` places its params by on a
+        mesh."""
+        return _train_specs(self, tp)
 
     # -- train --------------------------------------------------------------
 
@@ -96,7 +101,10 @@ class Model:
                     f"train on a mesh")
             return encdec_mod.encdec_loss(params, self.cfg, batch, mode,
                                           remat)
-        return tf_mod.lm_loss(params, self.cfg, batch, mode, remat)
+        specs = None if shd.active_mesh() is None else \
+            self.train_specs(shd.axis_size("model"))
+        return tf_mod.lm_loss(params, self.cfg, batch, mode, remat,
+                              specs=specs)
 
     # -- serve ---------------------------------------------------------------
 
@@ -142,8 +150,7 @@ class Model:
 
     def cache_specs(self, batch: int, s_max: int) -> Any:
         """The serving cache's shapes and dtypes on the ``meta`` device."""
-        with tally.shapes_only():
-            return self._cache(batch, s_max, torch.device("meta"))
+        return self._cache(batch, s_max, torch.device("meta"))
 
     def prefill(self, params, batch, cache, mode: str = "unroll"):
         if self.is_encdec:
@@ -196,6 +203,11 @@ class Model:
         if shape.kind == "prefill":
             return {"tokens": i32((B, S))}
         return {"tokens": i32((B, 1))}
+
+
+@functools.cache
+def _train_specs(model: Model, tp: int) -> Any:
+    return shd.param_specs(model.cfg, model.param_specs(), tp, fsdp=True)
 
 
 def build_model(cfg: ModelConfig) -> Model:

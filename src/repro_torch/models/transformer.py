@@ -49,7 +49,6 @@ the norms through ``enter`` too, so the same holds there.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -57,7 +56,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ..distributed import collectives as coll
 from ..distributed import sharding as shd
-from ..kernels import tally
 from . import attention as attn
 from . import moe as moe_mod
 from . import recurrent as rec_mod
@@ -411,15 +409,6 @@ def _unbind(tree: Any, n: int) -> List[Any]:
     return list(torch.unbind(tree))
 
 
-@functools.lru_cache(maxsize=None)
-def train_specs(cfg, tp: int) -> Params:
-    """``param_specs(fsdp=True)`` of ``cfg``'s parameter tree at ``tp``:
-    the training layout that ``lm_loss`` takes on a mesh."""
-    with tally.shapes_only():
-        whole = init_lm_params(cfg, None, torch.device("meta"))
-    return shd.param_specs(cfg, whole, tp, fsdp=True)
-
-
 def _gathered(tree: Any, specs: Any) -> Any:
     """The whole weights of this rank's training-layout blocks ``tree``
     (a leaf or a subtree) placed by ``specs``: each leaf all-gathered over
@@ -452,8 +441,8 @@ def forward_hidden(params: Params, cfg, h: torch.Tensor,
     instead of keeping its activations (``torch.utils.checkpoint``, the
     counterpart of ``jax.checkpoint`` around the scanned superblock); the
     aux carry passes through it with h.  The tail stays outside it, as in
-    the JAX package.  On a mesh ``specs`` (``train_specs``) places the
-    local params, each period's weights are gathered inside its
+    the JAX package.  On a mesh ``specs`` (``Model.train_specs``) places
+    the local params, each period's weights are gathered inside its
     checkpoint, and ``sp`` says the residual is sequence-parallel."""
     _check_mode(mode)
     period, full, tail = _period(cfg)
@@ -511,7 +500,8 @@ def _logits(params: Params, cfg, h: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(params: Params, cfg, batch, mode: str = "scan",
-            remat: bool = False, aux_weight: float = 0.01
+            remat: bool = False, aux_weight: float = 0.01,
+            specs: Optional[Params] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Mean next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (B, S), plus ``aux_weight`` times the router aux
@@ -523,11 +513,12 @@ def lm_loss(params: Params, cfg, batch, mode: str = "scan",
     is added (the reference rebinds ``loss`` before it builds the
     metrics); the port keeps that, so the metrics match.
 
-    On a mesh ``params`` are this rank's training-layout blocks and
-    ``batch`` its batch block: the loss returned is the block's (what
-    ``train.loop`` differentiates), the metrics are averaged over the
-    batch axes, so every rank reports the global batch's."""
-    specs, sp = None, False
+    On a mesh ``params`` are this rank's training-layout blocks, placed
+    by ``specs`` (``Model.train_specs``), and ``batch`` its batch block:
+    the loss returned is the block's (what ``train.loop``
+    differentiates), the metrics are averaged over the batch axes, so
+    every rank reports the global batch's."""
+    sp = False
     if shd.active_mesh() is not None:
         check_mesh(cfg, train=True)
         tp = shd.axis_size("model")
@@ -537,7 +528,9 @@ def lm_loss(params: Params, cfg, batch, mode: str = "scan",
             raise NotImplementedError(
                 f"training {cfg.name} at model={tp} takes a sequence that "
                 f"splits over model; got {S} tokens")
-        specs = train_specs(cfg, tp)
+        if specs is None:
+            raise ValueError("lm_loss on a mesh takes the params' specs "
+                             "(Model.train_specs)")
 
     def top(name):
         return _gathered(params[name], None if specs is None else

@@ -62,19 +62,15 @@ def _grad_of(model, params, batch, mode: str, remat: bool):
         tree_map(lambda _: next(flat), params)
 
 
-def _mesh_specs(model, memo: dict):
+def _mesh_specs(model):
     """The params' training-layout specs on the active mesh (None outside
-    one), kept in ``memo`` by the mesh's 'model' size."""
+    one)."""
     # imported here: ``distributed`` imports ``hetsched``, which imports
     # this module through ``hettrain.engine``
     from ..distributed import sharding as shd
     if shd.active_mesh() is None:
         return None
-    tp = shd.axis_size("model")
-    if tp not in memo:
-        memo[tp] = shd.param_specs(model.cfg, model.param_specs(), tp,
-                                   fsdp=True)
-    return memo[tp]
+    return model.train_specs(shd.axis_size("model"))
 
 
 def _local(batch, specs):
@@ -121,11 +117,9 @@ def make_train_step(model, opt: AdamW, mode: str = "scan",
     ``lax.scan`` accumulates them).  On a mesh each microbatch of the
     global batch is split over the batch axes, as the JAX package's are,
     and each rank accumulates its local blocks."""
-    memo: dict = {}
-
     def train_step(params, opt_state, batch):
         batch = _on_device(batch, _device_of(params))
-        specs = _mesh_specs(model, memo)
+        specs = _mesh_specs(model)
         if accum == 1:
             loss, metrics, grads = _grad_of(model, params,
                                             _local(batch, specs), mode, remat)
@@ -164,10 +158,8 @@ def make_grad_step(model, mode: str = "scan", remat: bool = False
     """``grad_step(params, batch) -> (loss, grads)``: one microbatch's
     gradient, no update (the work-exchange unit op).  On a mesh: the
     global batch's loss and this rank's blocks of its mean gradient."""
-    memo: dict = {}
-
     def grad_step(params, batch):
-        specs = _mesh_specs(model, memo)
+        specs = _mesh_specs(model)
         loss, _, grads = _grad_of(
             model, params, _local(_on_device(batch, _device_of(params)),
                                   specs), mode, remat)

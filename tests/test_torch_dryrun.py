@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import (ShapeConfig, get_config, resolve_for_tp,
                                  smoke_config)
@@ -40,6 +41,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.op_analysis import BLOCK, StepCounter
 from repro_torch.models import build_model
+from repro_torch.models import registry
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.models.attention import _flash
 from repro_torch.optim import AdamW
@@ -400,4 +402,28 @@ def test_cli_writes_one_cell(tmp_path, capsys):
     assert res["cost_analysis"]["flops"] == res["hlo"]["dot_flops"] > 0
     assert set(res["hlo"]["collective_counts"]) <= {
         "all-gather", "all-reduce", "reduce-scatter", "all-to-all"}
+    assert res["fsdp"] is False             # decode: the serving layout
     assert "all requested cells OK" in capsys.readouterr().out
+
+
+def test_fake_world_refuses_a_group_already_initialised():
+    with D.fake_world(8, 3):
+        with pytest.raises(RuntimeError, match="initialised already"):
+            with D.fake_world(4, 1):
+                pass
+        with pytest.raises(RuntimeError, match="initialised already"):
+            D.lower_cell("phi4-mini-3.8b", "decode_32k", multi_pod=False)
+        assert dist.get_world_size() == 8 and dist.get_rank() == 3
+    assert not dist.is_initialized()
+
+
+def test_train_specs_are_built_outside_the_count():
+    """The step's parameter specs, built on ``meta`` on first use, are
+    not the step's work: a count with them built anew equals one with
+    them kept."""
+    registry._train_specs.cache_clear()
+    with _world(SMOKE_WORLD, SMOKE_TP):
+        cold = _count("granite-moe-3b-a800m", "train", META, SMOKE_TP)
+        warm = _count("granite-moe-3b-a800m", "train", META, SMOKE_TP)
+    for key in ("dot_flops", "mem_bytes", "peak_bytes", "by_op"):
+        assert cold[key] == warm[key], key
